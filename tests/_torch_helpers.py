@@ -158,3 +158,40 @@ def world_cells(p, world: str):
 
 
 WORLDS = ("static", "dynamic", "multitenant", "nested", "parity")
+
+
+# ---------------------------------------------------------------------------
+# Paged attention cases
+# ---------------------------------------------------------------------------
+
+#: ``tests/test_kernels.py``'s paged-attention shapes (B, H, KVH, D, T)
+PAGED_SHAPES = ((2, 4, 2, 64, 16), (3, 8, 8, 32, 8), (1, 8, 1, 128, 16))
+#: and its class sets
+PAGED_K_CLASSES = ((), (2,), (3, 1))
+
+
+def random_pool_case(rng, allocator_cls, B, H, KVH, D, T, n_pages,
+                     frag: float):
+    """``tests/test_kernels.py::_random_pool_case`` in numpy: block tables
+    with tunable fragmentation from ``allocator_cls`` (either package's
+    ``PagedKVAllocator``), float32 pools and queries.  Returns
+    ``(q, k_pool, v_pool, block_tables, kv_lens)``."""
+    alloc = allocator_cls(n_pages, max_order=5,
+                          alloc_policy="page" if frag > 0.9 else "buddy_best")
+    for i in range(int(frag * 10)):
+        alloc.allocate(1000 + i, int(rng.integers(1, 6)))
+    for i in range(int(frag * 10)):
+        if rng.random() < 0.5:
+            alloc.free(1000 + i)
+    lens, tables = [], []
+    max_pages = n_pages // 2
+    for b in range(B):
+        L = int(rng.integers(T, T * max_pages // 2))
+        alloc.allocate(b, -(-L // T))
+        lens.append(L)
+        tables.append(alloc.block_table(b, max_pages))
+    bt = np.stack(tables)
+    kp = rng.standard_normal((n_pages, T, KVH, D)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, T, KVH, D)).astype(np.float32)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    return q, kp, vp, bt, np.asarray(lens, np.int32)
