@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-The port has two main paths, each through its hand-written CUDA kernel:
+The port has three main paths, each through its hand-written CUDA kernel:
 
 * the batched TLB sweep, ``repro_torch.core.sweep.run_sweep``, whose every
   batch is one launch of the TLB-sweep kernel
@@ -10,12 +10,16 @@ The port has two main paths, each through its hand-written CUDA kernel:
 * paged decode serving, ``repro_torch.serve.ServingEngine``, whose every
   decode step runs the class-k paged-attention kernel
   (``src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu``)
-  once per layer and alignment class.
+  once per layer and alignment class;
+* prefill, ``Model.prefill`` (which the engine calls for every admitted
+  request), whose every layer is one launch of the flash-attention kernel
+  (``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``).
 
-Phases, each fatal on failure:
+Every kernel's launch count is set to 0 just before a path is driven and
+read just after it.  Phases, each fatal on failure:
 
-1. build — compile both kernels with ``nvcc`` at once (one process per
-   source) and print what ``-Xptxas -v`` says for the TLB sweep
+1. build — compile the three kernels with ``nvcc`` at once (one process
+   per source) and print what ``-Xptxas -v`` says for the TLB sweep
    (registers, shared memory, spills);
 2. the paper's Table 4 batch at full size — four synthetic mappings of 2^19
    pages, 150,000 multiscale accesses each, the 12-method roster: 48 cells,
@@ -43,27 +47,49 @@ S2. InternLM2-1.8B at full width (24 layers, d_model 2048, 16 heads over 8
     classes K and the descriptor counts must equal the JAX engine's in
     ``tests/data/port_serve_reference.json`` (tokens wherever the
     fixture's top-1/top-2 gap exceeds twice the logit tolerance, logits
-    within ``LOGIT_ATOL``, integers exactly);
+    within ``LOGIT_ATOL``, integers exactly); every prefill launches the
+    flash-attention kernel once per layer;
 S3. the slice at conversation-trace lengths: default bf16 compute, 16
     requests whose prompt and answer lengths are drawn from a seed around
     the medians of the Azure LLM inference trace's conversation set (see
     ``s3_requests``), queued at once, through ``EngineConfig(page_size=16,
     num_pages=2048, max_batch=8, max_seq=4096)``; every request finishes
     (``stalled == 0``), the kernel ran with a class k >= 1, descriptors
-    were coalesced, and every token equals the dense-cache decode's
-    wherever the margin allows;
+    were coalesced, every prefill ran the flash-attention kernel once per
+    layer, and every token equals the dense-cache decode's wherever the
+    margin allows;
 S4. the kernel against its plain version on the card — the class passes of
     one S3 decode step (bf16 and f32) and ``tests/test_kernels.py``'s shape
     sweep: per class (o, m, l) and the merged output, f32 within 5e-5,
     bf16 within 2e-2;
 S5. timing, L2 flushed before each call: device time from
     ``torch.profiler`` (the kernel line's ``ms`` and ``library_ms``; the
-    phase fails where the profiler records no such kernel) and CUDA events
+    phase fails where the profiler records no such kernel, and reports the
+    events it recorded against the launches, counted by the wrapper for
+    the port's kernel, beside each time; where events are missing the line
+    takes the CUDA-events time and names it) and CUDA events
     (host launch cost included) of the class passes of the S3 step and of
     one ``scaled_dot_product_attention`` call on the same K/V gathered
     dense (the library yardstick, gather excluded); the plain version by
     CUDA events; the host clock of S3's prefills and decode steps and of
     the descriptor building; a profiler trace of one decode step;
+F1. the flash-attention kernel against its plain version on the card:
+    ``tests/test_kernels.py``'s four shapes, an InternLM2-1.8B layer at S3's
+    longest prompt (3,072 tokens), non-causal at 2,048, and at its
+    32,768-token context, each in f32 and bf16: f32 within 5e-5 and bf16
+    within 2e-2 (atol + rtol * |plain|), and bf16 also within one bf16 ulp
+    of the output (``BF16_ULP_RTOL``); two calls must give the same bits;
+F3. long-context serving at full width: one request of 32,704 prompt and 16
+    answer tokens through ``EngineConfig(page_size=16, num_pages=2112,
+    max_batch=1, max_seq=32768)`` in bf16: one prefill through the kernel
+    (24 launches), decode steps whose class-6 pass walks the 32k-token
+    row, the answer against the dense-cache decode as in S3, and a profile
+    of the prefill and of one decode step;
+F4. timing of one InternLM2-1.8B layer's kernel at S = 3,072 and 32,768
+    (bf16, causal), L2 flushed before each call: device time (profiler) and
+    CUDA events of the kernel and of one ``scaled_dot_product_attention``
+    call on the same q and K/V repeated to 16 heads (the library yardstick,
+    repeat excluded), the plain version by CUDA events, and the bound;
 5. the kernel line, the card line, and the ``{"ok": true, ...}`` line.
 
 It exits non-zero, printing no result, without a card or outside a
@@ -129,6 +155,31 @@ S3_PROMPT = dict(median=1020, sigma=0.8, lo=16, hi=3072)
 S3_OUTPUT = dict(median=129, sigma=1.0, lo=8, hi=1024)
 # tests/test_kernels.py's paged-attention shapes (B, H, KVH, D, T)
 PAGED_SHAPES = ((2, 4, 2, 64, 16), (3, 8, 8, 32, 8), (1, 8, 1, 128, 16))
+
+# ------------------------------------------------------------ prefill part
+FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:25"
+# H100 SXM f32 rate outside the tensor cores (NVIDIA's data sheet): the
+# peak for f32 inputs, which this repository never multiplies in TF32
+F32_FLOP_PER_S = 67e12
+# tests/test_kernels.py's flash-attention shapes (B, S, H, KVH, D, causal)
+FLASH_SHAPES = ((2, 128, 4, 2, 64, True), (1, 200, 4, 4, 32, True),
+                (2, 96, 8, 2, 64, False), (1, 64, 2, 1, 128, True))
+# bf16 flash kernel vs plain version, beside PA_TOL's 2e-2 (which is as
+# large as a typical output of a long causal row, ~sqrt(e / n) for n keys
+# of standard normal inputs): both multiply and sum in f32 and round the
+# output once to bf16, their f32 sums differing only in order, so they may
+# differ by one bf16 ulp of the output, at most 2^-7 of |plain|; the
+# absolute term, 1e-2 of the plain output's rms, covers outputs near 0
+BF16_ULP_RTOL = 2.0 ** -7
+BF16_RMS_ATOL = 1e-2
+# prompt lengths of F1/F4 at InternLM2-1.8B's layer: S3's longest prompt
+# and the model's published context (arXiv:2403.17297)
+FLASH_LENS = (3072, 32768)
+# F3: one request filling InternLM2-1.8B's 32k context, 16 answer tokens;
+# 2,112 pages hold its 2,045 with the buddy allocator's slack
+F3_ENGINE = dict(page_size=16, num_pages=2112, max_batch=1, max_seq=32768)
+F3_PROMPT, F3_NEW, F3_SEED = 32704, 16, 13
 
 
 def fail(msg: str) -> None:
@@ -412,6 +463,7 @@ def serve_against_fixture(ref, device, params=None):
                          f" > {LOGIT_ATOL}")
     return dict(max_abs_err=max_err, tokens_checked=checked,
                 tokens_total=len(ref["logits"]), diverged=sorted(diverged),
+                prefills=len(probe.prefill_s),
                 generated=[eng.requests[i].generated
                            for i in range(len(ref["requests"]))],
                 K=m["K"], descriptor_reduction=m["descriptor_reduction"],
@@ -557,26 +609,93 @@ def _kernel_times(fn):
     return out
 
 
-def device_ms(fn, reps, flush, expect=""):
-    """Mean device time of the kernels ``fn`` launches over ``reps`` calls,
-    each after ``flush()`` (kernels named as the flush's own are left
-    out), from ``torch.profiler``.  Raises ``ValueError`` where the
-    profiler records no kernel whose name holds ``expect``."""
+def kernel_rows(fn, reps, flush, expect="", counter=None, tries=3):
+    """``{kernel name: {"ms", "recorded", "expected"}}`` of what ``fn``
+    launches over ``reps`` calls, each after ``flush()`` (kernels named as
+    the flush's own are left out), from ``torch.profiler``: ``ms`` is the
+    mean device time per call.  ``expected`` counts the events the calls
+    launched: for the port's kernel (the one name holding ``expect``) the
+    growth of its launch count ``launch_counts()[counter]`` over the
+    profiled calls, exactly; for a kernel without a count (a library
+    call's) ``reps`` times its recorded events per call, rounded, at
+    least one a call.  The profiler has been seen to lose events on the
+    card (the flush's single call; one of three calls at 32k tokens), so
+    the flush is profiled over ``reps`` calls and a profile short of
+    events is taken again, up to ``tries`` times; a kernel still short
+    after that is timed as its mean recorded launch times its expected
+    launches per call, its ``recorded`` below its ``expected`` saying so
+    (:func:`line_ms` then takes CUDA events instead).  Raises
+    ``ValueError`` where no profile records a kernel whose name holds
+    ``expect``, or the flush's kernel."""
     import torch
     fn()
     torch.cuda.synchronize()
-    flush_names = set(_kernel_times(flush))
+    def flushes():
+        for _ in range(reps):
+            flush()
+    for _ in range(tries):
+        flush_names = set(_kernel_times(flushes))
+        if flush_names:
+            break
+    else:
+        raise ValueError("the profiler recorded no kernel of the L2 flush")
 
     def runs():
         for _ in range(reps):
             flush()
             fn()
-    rows = {name: t for name, (t, _) in _kernel_times(runs).items()
-            if name not in flush_names}
-    if not any(expect in name and t > 0 for name, t in rows.items()):
+    for _ in range(tries):
+        n0 = launch_counts()[counter] if counter else 0
+        times = {name: r for name, r in _kernel_times(runs).items()
+                 if name not in flush_names}
+        own = launch_counts()[counter] - n0 if counter else 0
+        mine = [name for name in times if expect in name]
+        if counter and len(mine) > 1:
+            raise ValueError(f"{len(mine)} kernels hold {expect!r}: "
+                             f"{mine[:4]}")
+        rows = {}
+        for name, (t, n) in times.items():
+            e = (own if counter and expect in name
+                 else reps * max(1, round(n / reps)))
+            rows[name] = dict(ms=t / n * e / reps, recorded=n, expected=e)
+        if any(expect in name and r["ms"] > 0 for name, r in rows.items()) \
+                and all(r["recorded"] >= r["expected"]
+                        for r in rows.values()):
+            break
+    if not any(expect in name and r["ms"] > 0 for name, r in rows.items()):
         raise ValueError(f"the profiler recorded no device time for a "
                          f"kernel named {expect!r}: {sorted(rows)[:8]}")
-    return sum(rows.values()) / reps
+    return rows
+
+
+def device_ms(fn, reps, flush, expect="", counter=None):
+    """Mean device time of the kernels ``fn`` launches per call, with the
+    events the profiler recorded and those the calls launched
+    (:func:`kernel_rows`): ``{"ms", "recorded", "expected"}``."""
+    rows = kernel_rows(fn, reps, flush, expect, counter).values()
+    return {key: sum(r[key] for r in rows)
+            for key in ("ms", "recorded", "expected")}
+
+
+def line_ms(events_ms, *timed):
+    """A kernel line's time and its source: the profiler's device time of
+    ``timed`` (:func:`device_ms` results, summed) where it recorded every
+    launch, else ``events_ms``, the same calls' CUDA-events time."""
+    rec = sum(t["recorded"] for t in timed)
+    exp = sum(t["expected"] for t in timed)
+    if rec >= exp:
+        return sum(t["ms"] for t in timed), "device time (profiler)"
+    return events_ms, (f"CUDA events (the profiler recorded {rec} of {exp} "
+                       f"launches)")
+
+
+def events_note(*timed) -> str:
+    """``"recorded/expected"`` profiler events over ``timed``
+    (:func:`device_ms` results), marked where events are missing."""
+    rec = sum(t["recorded"] for t in timed)
+    exp = sum(t["expected"] for t in timed)
+    return f"{rec}/{exp}" + ("" if rec >= exp else
+                             " (MISSING: mean of the recorded launches)")
 
 
 def live_tokens(desc, classes, kv_lens, page_size):
@@ -612,43 +731,144 @@ def paged_bound(desc, classes, kv_lens, B, H, KVH, D, page_size, elt):
             else "operations", n_bytes, flops, t_bytes, t_ops)
 
 
-def profile_decode_step(model, eng, step, dev):
-    """Device time by kernel over one replayed S3 decode step, from
-    ``torch.profiler``'s kernel events, and the step's host-clock wall, for
-    the device's busy share.  Raises ``ValueError`` where the trace holds
-    no paged-attention kernel."""
+def profile_breakdown(fn, kernel, label):
+    """Device time by kernel over one call of ``fn`` (after a warm-up
+    call), from ``torch.profiler``'s kernel events, split into the port's
+    kernel (names holding ``kernel``, reported as ``<label>_ms``), matrix
+    products and the rest, beside the call's host-clock wall for the
+    device's busy share.  Raises ``ValueError`` where the trace holds no
+    such kernel."""
     import torch
-    from repro_torch.kernels.paged_attention import build_descriptors
-    B = eng.ec.max_batch
-    toks = torch.zeros((B, 1), dtype=torch.long, device=dev)
     wall = []
 
     def run():
         t0 = time.perf_counter()
-        desc = build_descriptors(step["tables"], step["K"])
-        model.decode_step_paged(eng.params, eng.state, toks, step["lens"],
-                                step["tables"], desc,
-                                page_size=eng.ec.page_size,
-                                K_classes=step["K"])
+        fn()
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
     run()                                          # warm
     rows = _kernel_times(run)
     wall_ms = wall[-1]
     total = sum(r[0] for r in rows.values())
-    pa = sum(r[0] for n, r in rows.items() if "class_pass_kernel" in n)
-    if not pa > 0:
-        raise ValueError("the profiler recorded no paged-attention kernel in "
-                         "a decode step")
+    own = sum(r[0] for n, r in rows.items() if kernel in n)
+    if not own > 0:
+        raise ValueError(f"the profiler recorded no {label} kernel")
     gemm = sum(r[0] for n, r in rows.items() if any(w in n.lower() for w in (
         "gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")))
     top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:12]
-    return dict(wall_ms=wall_ms, device_ms=total, busy_share=total / wall_ms,
-                paged_attention_ms=pa, matmul_ms=gemm,
-                other_ms=total - pa - gemm, kernels=sum(
-                    r[1] for r in rows.values()),
-                top=[dict(name=n[:120], ms=r[0], count=r[1])
-                     for n, r in top])
+    return {"wall_ms": wall_ms, "device_ms": total,
+            "busy_share": total / wall_ms, f"{label}_ms": own,
+            "matmul_ms": gemm, "other_ms": total - own - gemm,
+            "kernels": sum(r[1] for r in rows.values()),
+            "top": [dict(name=n[:120], ms=r[0], count=r[1])
+                    for n, r in top]}
+
+
+def profile_decode_step(model, eng, step, dev):
+    """:func:`profile_breakdown` of one replayed decode step (host
+    descriptor building included in its wall)."""
+    import torch
+    from repro_torch.kernels.paged_attention import build_descriptors
+    B = eng.ec.max_batch
+    toks = torch.zeros((B, 1), dtype=torch.long, device=dev)
+
+    def run():
+        desc = build_descriptors(step["tables"], step["K"])
+        model.decode_step_paged(eng.params, eng.state, toks, step["lens"],
+                                step["tables"], desc,
+                                page_size=eng.ec.page_size,
+                                K_classes=step["K"])
+    return profile_breakdown(run, "class_pass_kernel", "paged_attention")
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.tlb_sweep import LAUNCHES as TLB_LAUNCHES
+    for k in TLB_LAUNCHES:
+        TLB_LAUNCHES[k] = 0
+    pa_ops.reset_launch_counts()
+    fa_ops.LAUNCHES["flash_attention"] = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.tlb_sweep import LAUNCHES as TLB_LAUNCHES
+    return dict(tlb_sweep=TLB_LAUNCHES.get("tlb_sweep", 0),
+                paged_attention=pa_ops.LAUNCHES["paged_attention"],
+                flash_attention=fa_ops.LAUNCHES["flash_attention"])
+
+
+def flash_bound(B, S, H, KVH, D, elt, causal=True):
+    """Least time the card could take for one forward attention: bytes of
+    q, k, v read once and o written once at the HBM rate; operations (a
+    multiply-add each for q.k and p.v per head dim, query head and (query,
+    key) pair the mask keeps: S(S+1)/2 pairs causal, S^2 not) at the peak
+    rate of the inputs' type (bf16 tensor rate for 2-byte types, the f32
+    rate otherwise).  Returns (ms, by, bytes, flops, bytes_ms, ops_ms)."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * D * B * H * pairs
+    n_bytes = elt * B * S * D * (2 * H + 2 * KVH)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (BF16_FLOP_PER_S if elt == 2 else F32_FLOP_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes, flops, t_bytes, t_ops)
+
+
+def flash_inputs(shape, dtype, device, seed=0):
+    """q [B, S, H, D] and k, v [B, S, KVH, D], standard normal from a numpy
+    seed, in ``dtype`` on ``device``."""
+    import numpy as np
+    import torch
+    B, S, H, KVH, D = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(
+        device, dtype) for sh in ((B, S, H, D), (B, S, KVH, D),
+                                  (B, S, KVH, D))]
+
+
+def flash_vs_plain(q, k, v, causal):
+    """The flash-attention kernel against ``flash_attention_ref`` on the same
+    card tensors, and against itself (a second call must give the same
+    bits).  Holds every element to ``atol + rtol * |plain|`` with the
+    dtype's tolerance (``PA_TOL``) and, in bf16, to one bf16 ulp of the
+    output (``BF16_ULP_RTOL * |plain| + BF16_RMS_ATOL * rms(plain)``).
+    Returns ``{"max_abs_err", "rms", "limit_used"}``: the largest
+    absolute error, the plain output's rms and the largest share of the
+    tighter limit an element uses; raises ``ValueError`` past a limit or on
+    differing bits."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_gqa,
+                                                     flash_attention_ref)
+    tol = PA_TOL[str(q.dtype).replace("torch.", "")]
+    got = flash_attention_gqa(q, k, v, causal=causal)
+    again = flash_attention_gqa(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    if q.device.type == "cuda":
+        torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise ValueError("two calls of the kernel gave different bits")
+    want = want.float()
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    rms = float(want.square().mean().sqrt())
+    if not bool((diff <= tol + tol * want.abs()).all()):
+        raise ValueError(f"kernel differs from the plain version by {err:.3g}"
+                         f" (atol = rtol = {tol})")
+    if q.dtype == torch.bfloat16:
+        limit = BF16_ULP_RTOL * want.abs() + BF16_RMS_ATOL * rms
+    else:
+        limit = tol + tol * want.abs()
+    used = float((diff / limit).max())
+    if used > 1:
+        raise ValueError(f"kernel differs from the plain version by more "
+                         f"than one bf16 ulp: {used:.3g} of 2^-7 |plain| + "
+                         f"{BF16_RMS_ATOL} rms (rms {rms:.3g}, max abs err "
+                         f"{err:.3g})")
+    return dict(max_abs_err=err, rms=rms, limit_used=used)
 
 
 def main() -> int:
@@ -665,12 +885,13 @@ def main() -> int:
         from repro_torch.core.lane_program import needs_switch_pass
         from repro_torch.core.sweep import (SweepCell, batches_of,
                                             pack_batch, run_sweep)
-        from repro_torch.kernels.tlb_sweep import (LAUNCHES, _build,
-                                                   run_lanes, run_lanes_ref)
+        from repro_torch.kernels.tlb_sweep import (_build, run_lanes,
+                                                   run_lanes_ref)
         from repro_torch.kernels.tlb_sweep.ops import (as_tensors,
                                                        prepare_cuda)
         from repro_torch.kernels.paged_attention import _build as pa_build
         from repro_torch.kernels.paged_attention import ops as pa_ops
+        from repro_torch.kernels.flash_attention import _build as fa_build
     except ImportError as e:
         fail(f"cannot import the port from {HERE}/src ({e}); run this "
              "script from a checkout of the repository")
@@ -684,17 +905,18 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ------------------------------------------------------------ 1. build
-    t0 = phase("1. build (nvcc, sm_90a; both kernels at once)")
+    t0 = phase("1. build (nvcc, sm_90a; the three kernels at once)")
     from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(2) as ex:
-        builds = [(b, ex.submit(b.build)) for b in (_build, pa_build)]
+    with ThreadPoolExecutor(3) as ex:
+        builds = [(b, ex.submit(b.build))
+                  for b in (_build, pa_build, fa_build)]
         for b, fut in builds:
             try:
                 lib = fut.result()
             except Exception as e:  # the build must not fail
                 fail(f"kernel build failed: {e}")
             print(f"built {os.path.relpath(str(lib), HERE)}")
-    print(f"both kernels built in {time.time() - t0:.1f} s")
+    print(f"the three kernels built in {time.time() - t0:.1f} s")
     for line in _build.ptxas_report().splitlines():
         if ("Compiling" in line or "registers" in line or "spill" in line
                 or "smem" in line):
@@ -722,20 +944,18 @@ def main() -> int:
             fail(f"roster differs from the fixture: {spec} vs {rc['spec']}")
 
     torch.cuda.synchronize()
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    pa_ops.reset_launch_counts()
+    reset_counts()
     t1 = time.time()
     sweep = run_sweep(cells, cache=False, device="cuda")
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    launches = launch_counts()
     wall = time.time() - t1
     print(f"run_sweep(device='cuda'): {wall:.2f} s wall, stats "
           f"{sweep.stats}, launches {launches}")
-    if launches.get("tlb_sweep", 0) < 1:
+    if launches["tlb_sweep"] < 1:
         fail("the main path did not launch the tlb_sweep kernel")
-    if pa_ops.LAUNCHES["paged_attention"] != 0:
-        fail("the sweep launched the paged-attention kernel")
+    if launches["paged_attention"] or launches["flash_attention"]:
+        fail("the sweep launched an attention kernel")
     walks = {}
     for c, r, rc, kind in zip(cells, sweep.results, ref["cells"], kinds_of):
         want = np.asarray(c.mapping.ppn)[c.trace]
@@ -860,15 +1080,18 @@ def main() -> int:
          plain_batch, pl, ps, p0, prefix_cells, dyn_cells, mt_cells)
     torch.cuda.empty_cache()
 
-    pa, serve_out = serve_phases(torch, np, dev, pa_build, pa_ops)
+    pa, serve_out, params = serve_phases(torch, np, dev, pa_build, pa_ops)
+    fa, flash_out = flash_phases(torch, np, dev, params, fa_build,
+                                 serve_out)
+    del params
 
     # ----------------------------------------------------------- 5. report
     phase("5. report")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, kernels=[tlb, pa], tlb_sweep=tlb_out,
-                       serving=serve_out), f, indent=1)
-    print(json.dumps({"kernels": [tlb, pa]}))
+        json.dump(dict(card=card, kernels=[tlb, pa, fa], tlb_sweep=tlb_out,
+                       serving=serve_out, prefill=flash_out), f, indent=1)
+    print(json.dumps({"kernels": [tlb, pa, fa]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -878,7 +1101,8 @@ def main() -> int:
 
 def serve_phases(torch, np, dev, pa_build, pa_ops):
     """Phases S1-S5 (paged decode serving); returns the paged-attention
-    kernel's line and the numbers for ``chip_smoke.json``."""
+    kernel's line, the numbers for ``chip_smoke.json`` and the bf16 weights
+    on the card."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import (
         build_descriptors, dma_stats, gather_kv, merge_partials,
@@ -904,17 +1128,29 @@ def serve_phases(torch, np, dev, pa_build, pa_ops):
         t1 = time.time()
         params = load_weights(model32, ref, dev)
         t_weights = time.time() - t1
+        torch.cuda.synchronize()
+        reset_counts()
         s2 = serve_against_fixture(ref, dev, params)
+        torch.cuda.synchronize()
     except ValueError as e:
         fail(f"S2: {e}")
+    s2["launches"] = launch_counts()
     s2.pop("params")
+    n_layers = model32.cfg.n_layers
+    if (s2["launches"]["flash_attention"] != n_layers * s2["prefills"]
+            or s2["launches"]["paged_attention"] < 1):
+        fail(f"S2: {s2['prefills']} prefills and the decode steps launched "
+             f"{s2['launches']}; want {n_layers} flash-attention launches a "
+             "prefill and a paged-attention launch")
     print(f"{model32.n_params():,} parameters drawn, checked against the "
           f"fixture's digest and moved to the card in {t_weights:.1f} s")
     print(f"tokens {s2['generated']} == JAX ({s2['tokens_checked']} of "
           f"{s2['tokens_total']} past the margin), logits max abs err "
           f"{s2['max_abs_err']:.3g} <= {LOGIT_ATOL}, K={s2['K']}, descriptor "
           f"reduction {s2['descriptor_reduction']:.4f} == JAX; engine "
-          f"{s2['wall_s']:.2f} s ({time.time() - t0:.1f} s in all)")
+          f"{s2['wall_s']:.2f} s ({time.time() - t0:.1f} s in all); launches "
+          f"{s2['launches']} ({s2['prefills']} prefills x {n_layers} "
+          "layers through the flash-attention kernel)")
     out["s2"] = s2
 
     # ------------------------- S3. the slice at conversation-trace lengths
@@ -932,21 +1168,22 @@ def serve_phases(torch, np, dev, pa_build, pa_ops):
     print(f"prompt lengths {[len(p) for p, _ in requests]}, answer lengths "
           f"{[n for _, n in requests]}")
     torch.cuda.synchronize()
-    from repro_torch.kernels.tlb_sweep import LAUNCHES as TLB_LAUNCHES
-    for k in TLB_LAUNCHES:
-        TLB_LAUNCHES[k] = 0
-    pa_ops.reset_launch_counts()
+    reset_counts()
     t1 = time.time()
     m = eng.run_to_completion()
     torch.cuda.synchronize()
     wall = time.time() - t1
-    launches = pa_ops.LAUNCHES["paged_attention"]
+    counts = launch_counts()
+    launches = counts["paged_attention"]
+    fa_launches = counts["flash_attention"]
     by_class = dict(pa_ops.CLASS_LAUNCHES)
     print(f"engine wall {wall:.2f} s: {m['steps']} steps, {m['tokens']} "
           f"decoded tokens, K={m['K']}, descriptor reduction "
           f"{m['descriptor_reduction']:.4f}, preemptions "
-          f"{m['preemptions']}, stalled {m['stalled']}; kernel launches "
-          f"{launches} by class {by_class}")
+          f"{m['preemptions']}, stalled {m['stalled']}; paged-attention "
+          f"launches {launches} by class {by_class}; flash-attention "
+          f"launches {fa_launches} ({len(probe.prefill_s)} prefills x "
+          f"{model.cfg.n_layers} layers)")
     if m["stalled"] != 0 or any(r.state != "done"
                                 for r in eng.requests.values()):
         fail("S3: not every request finished")
@@ -955,8 +1192,11 @@ def serve_phases(torch, np, dev, pa_build, pa_ops):
         fail("S3: a request did not get all its tokens")
     if launches < 1 or not any(k >= 1 and n > 0 for k, n in by_class.items()):
         fail("S3: the paged-attention kernel did not run a class k >= 1")
-    if sum(TLB_LAUNCHES.values()) != 0:
+    if counts["tlb_sweep"] != 0:
         fail("S3: the serving path launched the TLB kernel")
+    if fa_launches != model.cfg.n_layers * len(probe.prefill_s):
+        fail(f"S3: {len(probe.prefill_s)} prefills launched the "
+             f"flash-attention kernel {fa_launches} times")
     if not m["descriptor_reduction"] > 0:
         fail("S3: no descriptor was coalesced")
     try:
@@ -974,6 +1214,7 @@ def serve_phases(torch, np, dev, pa_build, pa_ops):
         engine_wall_s=wall, steps=m["steps"], tokens=m["tokens"], K=m["K"],
         descriptor_reduction=m["descriptor_reduction"],
         preemptions=m["preemptions"], launches=launches,
+        flash_launches=fa_launches,
         launches_by_class={str(k): n for k, n in by_class.items()},
         prefill_s=dict(n=len(pre), total=sum(pre),
                        median=statistics.median(pre),
@@ -1039,12 +1280,14 @@ def serve_phases(torch, np, dev, pa_build, pa_ops):
     # overwriting 64 MB (more than the 50 MB L2) before each timed call puts
     # its inputs back in device memory, as a decode step's layers find them
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev).zero_
-    per_class, per_class_ev, plain_class = {}, {}, {}
+    per_class, per_class_ev, plain_class, timed = {}, {}, {}, {}
     try:
         for k in classes:
             run = (lambda k=k: pa_ops._class_pass(
                 q, kp16, vp16, *prep.tables[k], lens_t, k, T, scale))
-            per_class[k] = device_ms(run, 20, flush, "class_pass_kernel")
+            timed[k] = device_ms(run, 20, flush, "class_pass_kernel",
+                                 "paged_attention")
+            per_class[k] = timed[k]["ms"]
             per_class_ev[k] = cuda_time_ms(run, 20, flush)
             plain_class[k] = cuda_time_ms(
                 lambda k=k: paged_attention_class_pass_ref(
@@ -1076,13 +1319,16 @@ def serve_phases(torch, np, dev, pa_build, pa_ops):
         return F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
                                               enable_gqa=True)
     try:
-        library_ms = device_ms(sdpa, 20, flush)
+        lib_timed = device_ms(sdpa, 20, flush)
+        library_ms = lib_timed["ms"]
     except ValueError as e:
         fail(f"S5 library yardstick: {e}")
     library_ev = cuda_time_ms(sdpa, 20, flush)
     lib_note = (f"scaled_dot_product_attention(enable_gqa=True) on K/V "
                 f"gathered dense [B={B}, KVH={KVH}, S={S}, D={D}], gather "
-                f"excluded, device time (profiler)")
+                f"excluded")
+    ms_line, ms_src = line_ms(ms_pa_ev, *timed.values())
+    lib_line, lib_src = line_ms(library_ev, lib_timed)
     del kd, vd
     print(f"class passes of one layer at the S3 step (B={B}, {n_live} live "
           f"rows, K={K}, kv_lens {int(step['lens'].min())}-"
@@ -1091,7 +1337,10 @@ def serve_phases(torch, np, dev, pa_build, pa_ops):
           + f" = {ms_pa:.4f} ms; CUDA events (host launch included) "
           f"{ms_pa_ev:.4f} ms, merge {merge_ms:.4f} ms; plain version "
           f"{plain_pa:.3f} ms (CUDA events); library {library_ms:.5f} ms "
-          f"(CUDA events {library_ev:.5f} ms; {lib_note})")
+          f"(CUDA events {library_ev:.5f} ms; {lib_note}); profiler events "
+          f"recorded/launched: kernel {events_note(*timed.values())}, "
+          f"library {events_note(lib_timed)}; kernel line: kernel "
+          f"{ms_line:.5f} ms, {ms_src}; library {lib_line:.5f} ms, {lib_src}")
     print(f"bound {b_ms:.5f} ms by {b_by} ({b_bytes} B of live K/V tokens, "
           f"q and outputs at {HBM_BYTES_PER_S:.3g} B/s = {b_tb:.5f} ms; "
           f"{b_flops} flop at {BF16_FLOP_PER_S:.3g}/s = {b_to:.6f} ms); the "
@@ -1132,6 +1381,8 @@ def serve_phases(torch, np, dev, pa_build, pa_ops):
         plain_ms_by_class={str(k): t for k, t in plain_class.items()},
         merge_events_ms=merge_ms, library_ms=library_ms,
         library_events_ms=library_ev, library=lib_note,
+        profiler_events=dict(kernel=events_note(*timed.values()),
+                             library=events_note(lib_timed)),
         bound=dict(ms=b_ms, by=b_by, bytes=b_bytes, flops=b_flops,
                    bytes_ms=b_tb, ops_ms=b_to, token_slots=all_tokens,
                    live_tokens=live_tokens(desc, classes, lens, T)),
@@ -1139,15 +1390,248 @@ def serve_phases(torch, np, dev, pa_build, pa_ops):
     kernel = dict(
         name="paged_attention", route="cuda", source=PA_SRC,
         replaces=PA_REPLACES, launches=launches, max_abs_err=err32,
-        max_abs_err_bf16=err16, ms=round(ms_pa, 5),
+        max_abs_err_bf16=err16, ms=round(ms_line, 5),
         plain_ms=round(plain_pa, 4), bound_ms=round(b_ms, 6),
-        bound_by=b_by, library_ms=round(library_ms, 5),
+        bound_by=b_by, library_ms=round(lib_line, 5),
         ms_shape=(f"one layer's class passes of an S3 decode step, bf16, "
                   f"B={B} H={H} KVH={KVH} D={D} T={T} K={list(K)}"),
-        ms_source="device time (profiler)", ms_events=round(ms_pa_ev, 5),
-        library_ms_events=round(library_ev, 5),
+        ms_source=ms_src, ms_events=round(ms_pa_ev, 5),
+        library_ms_source=lib_src, library_ms_events=round(library_ev, 5),
+        profiler_events=events_note(*timed.values()),
+        library_profiler_events=events_note(lib_timed),
         plain_ms_source="CUDA events",
         launches_by_class={str(k): n for k, n in by_class.items()})
+    return kernel, out, eng.params
+
+
+def flash_phases(torch, np, dev, params, fa_build, serve_out):
+    """Phases F1, F3 and F4 (prefill attention; S2 and S3 drove it through
+    the engine already, ``serve_out`` holds their launch counts); returns
+    the flash-attention kernel's line and the numbers for
+    ``chip_smoke.json``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_gqa,
+                                                     flash_attention_ref)
+    from repro_torch.models import Model, RunConfig
+    from repro_torch.serve import EngineConfig, ServingEngine
+    out = {}
+    model = Model(get_config(SERVE_ARCH), RunConfig())
+    cfg = model.cfg
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    # --------------------------------------- F1. kernel vs plain, the card
+    t0 = phase("F1. flash-attention kernel vs plain version on the card")
+    for line in fa_build.ptxas_report().splitlines():
+        if "Compiling" in line or "registers" in line or "spill" in line:
+            print("  " + line.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in f32
+    cases = [(f"test_kernels{i}", shape[:5], shape[5], dt)
+             for i, shape in enumerate(FLASH_SHAPES)
+             for dt in (torch.float32, torch.bfloat16)]
+    layer = lambda S: (1, S, H, KVH, D)  # noqa: E731
+    cases += [(f"internlm2_S{FLASH_LENS[0]}", layer(FLASH_LENS[0]), True, dt)
+              for dt in (torch.float32, torch.bfloat16)]
+    cases += [("internlm2_S2048_noncausal", layer(2048), False, dt)
+              for dt in (torch.float32, torch.bfloat16)]
+    cases += [(f"internlm2_S{FLASH_LENS[1]}", layer(FLASH_LENS[1]), True, dt)
+              for dt in (torch.float32, torch.bfloat16)]
+    errs = {}
+    try:
+        for name, shape, causal, dt in cases:
+            q, k, v = flash_inputs(shape, dt, dev)
+            t1 = time.time()
+            errs[f"{name}_{str(dt)[6:]}"] = e = flash_vs_plain(q, k, v,
+                                                               causal)
+            print(f"  {name} {str(dt)[6:]} {shape} causal={causal}: max abs "
+                  f"err {e['max_abs_err']:.3g}, output rms {e['rms']:.3g}, "
+                  f"{100 * e['limit_used']:.1f} % of the tighter limit, "
+                  f"deterministic ({time.time() - t1:.1f} s)")
+            del q, k, v
+    except ValueError as e:
+        fail(f"F1 {name} {dt}: {e}")
+    torch.cuda.empty_cache()
+    err32, err16 = (max(e["max_abs_err"] for n, e in errs.items()
+                        if n.endswith(dt)) for dt in ("float32", "bfloat16"))
+    used32, used16 = (max(e["limit_used"] for n, e in errs.items()
+                          if n.endswith(dt)) for dt in ("float32", "bfloat16"))
+    print(f"kernel == plain version within atol + rtol * |plain| (atol = "
+          f"rtol = {PA_TOL['float32']} f32, {PA_TOL['bfloat16']} bf16) and, "
+          f"in bf16, within one ulp ({BF16_ULP_RTOL:.6g} |plain| + "
+          f"{BF16_RMS_ATOL} rms): max abs err {err32:.3g} (f32, "
+          f"{100 * used32:.1f} % of its limit), {err16:.3g} (bf16, "
+          f"{100 * used16:.1f} % of the ulp limit); two calls equal bit for "
+          f"bit ({time.time() - t0:.1f} s)")
+    out["f1"] = errs
+
+    # ------------------------------ F3. long-context serving at full width
+    t0 = phase(f"F3. serving, bf16: one request of {F3_PROMPT} prompt and "
+               f"{F3_NEW} answer tokens, {F3_ENGINE['num_pages']} pages x "
+               f"{F3_ENGINE['page_size']} tokens")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(model, params, EngineConfig(**F3_ENGINE), device=dev)
+    probe = EngineProbe(model, eng)
+    eng.model = probe
+    rng = np.random.default_rng(F3_SEED)
+    eng.add_request([int(t) for t in rng.integers(0, cfg.vocab, F3_PROMPT)],
+                    max_new_tokens=F3_NEW)
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.time()
+    m = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    counts = launch_counts()
+    by_class = dict(pa_ops.CLASS_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    req = eng.requests[0]
+    pre = probe.prefill_s
+    print(f"engine wall {wall:.2f} s: {m['steps']} steps, K={m['K']}, "
+          f"descriptor reduction {m['descriptor_reduction']:.4f}, stalled "
+          f"{m['stalled']}; launches {counts}, paged by class {by_class}; "
+          f"prefill {pre[0][1]:.3f} s for {pre[0][0]} tokens, decode steps "
+          f"median {statistics.median(probe.decode_s) * 1e3:.2f} ms "
+          f"({len(probe.decode_s)} steps); peak device memory {peak_gb:.2f} "
+          "GB")
+    if m["stalled"] != 0 or req.state != "done" \
+            or len(req.generated) != F3_NEW:
+        fail("F3: the long request did not finish with all its tokens")
+    if counts["flash_attention"] != cfg.n_layers * len(pre) or len(pre) != 1:
+        fail(f"F3: {len(pre)} prefills launched the flash-attention kernel "
+             f"{counts['flash_attention']} times")
+    if counts["paged_attention"] < 1 or counts["tlb_sweep"] != 0:
+        fail(f"F3: launches {counts}")
+    try:
+        dc = dense_check(model, eng.params, [req], dev, DENSE_MARGIN)
+    except ValueError as e:
+        fail(f"F3 vs dense decode: {e}")
+    print(f"vs the dense-cache decode_step (teacher-forced): {dc['equal']} of "
+          f"{dc['checked']} tokens equal, the rest within {DENSE_MARGIN} "
+          f"(largest lead {dc['max_gap']:.4g})")
+    toks = torch.tensor([req.prompt], device=dev)
+    try:
+        prof_pre = profile_breakdown(
+            lambda: model.prefill(eng.params, toks), "flash_attention_fwd",
+            "flash_attention")
+        prof_dec = profile_decode_step(model, eng, probe.steps[-1], dev)
+    except ValueError as e:
+        fail(f"F3 profile: {e}")
+    for what, pr, own in (("prefill", prof_pre, "flash_attention"),
+                          ("decode step", prof_dec, "paged_attention")):
+        print(f"profiler, the {what} replayed: {pr['kernels']} kernels, "
+              f"device {pr['device_ms']:.3f} ms = {own.replace('_', ' ')} "
+              f"{pr[own + '_ms']:.3f} + matmuls {pr['matmul_ms']:.3f} + other "
+              f"{pr['other_ms']:.3f} ms, of {pr['wall_ms']:.3f} ms host wall "
+              f"(device busy {100 * pr['busy_share']:.1f} %)")
+    print(f"({time.time() - t0:.1f} s in all)")
+    out["f3"] = dict(
+        engine_wall_s=wall, steps=m["steps"], K=m["K"],
+        descriptor_reduction=m["descriptor_reduction"], launches=counts,
+        launches_by_class={str(k): n for k, n in by_class.items()},
+        prefill_s=pre[0][1], prompt_tokens=pre[0][0],
+        decode_step_s=dict(n=len(probe.decode_s), total=sum(probe.decode_s),
+                           median=statistics.median(probe.decode_s)),
+        peak_memory_gb=peak_gb, dense_check=dc, profile_prefill=prof_pre,
+        profile_decode_step=prof_dec)
+    del eng, probe, req, toks
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ F4. timing
+    t0 = phase("F4. timing of one InternLM2-1.8B layer, bf16, causal (L2 "
+               "flushed before each call)")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev).zero_
+    timings = {}
+    try:
+        for S, reps, plain_reps in ((FLASH_LENS[0], 20, 5),
+                                    (FLASH_LENS[1], 3, 2)):
+            q, k, v = flash_inputs(layer(S), torch.bfloat16, dev, seed=1)
+            run = lambda: flash_attention_gqa(q, k, v, causal=True)  # noqa: E731
+            timed = device_ms(run, reps, flush, "flash_attention_fwd_kernel",
+                              "flash_attention")
+            ms = timed["ms"]
+            ms_ev = cuda_time_ms(run, reps, flush)
+            plain = cuda_time_ms(lambda: flash_attention_ref(
+                q, k, v, causal=True), plain_reps, flush)
+            # the library yardstick on [B, H, S, D], K/V repeated to H heads
+            qt = q.transpose(1, 2).contiguous()
+            kt = k.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+            vt = v.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+
+            def sdpa():
+                with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                                  SDPBackend.EFFICIENT_ATTENTION]):
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True)
+            lib_rows = kernel_rows(sdpa, reps, flush)
+            lib_timed = {key: sum(r[key] for r in lib_rows.values())
+                         for key in ("ms", "recorded", "expected")}
+            lib = lib_timed["ms"]
+            lib_ev = cuda_time_ms(sdpa, reps, flush)
+            lib_names = sorted(n[:80] for n in lib_rows)
+            b_ms, b_by, b_bytes, b_flops, b_tb, b_to = flash_bound(
+                1, S, H, KVH, D, 2)
+            ms_line, ms_src = line_ms(ms_ev, timed)
+            lib_line, lib_src = line_ms(lib_ev, lib_timed)
+            timings[S] = dict(
+                ms=ms_line, ms_source=ms_src, ms_profiler=ms,
+                ms_events=ms_ev, plain_ms=plain, library_ms=lib_line,
+                library_ms_source=lib_src, library_ms_profiler=lib,
+                library_ms_events=lib_ev, library_kernels=lib_names,
+                bound_ms=b_ms, bound_by=b_by, bytes=b_bytes, flops=b_flops,
+                bytes_ms=b_tb, ops_ms=b_to,
+                tflops=b_flops / (ms_line * 1e-3) / 1e12,
+                profiler_events=events_note(timed),
+                library_profiler_events=events_note(lib_timed))
+            print(f"S={S}: kernel {ms:.5f} ms device time (profiler), "
+                  f"{ms_ev:.5f} ms CUDA events ({timings[S]['tflops']:.2f} "
+                  f"Tflop/s); plain version {plain:.3f} ms (CUDA events); "
+                  f"library {lib:.5f} ms device time, {lib_ev:.5f} ms CUDA "
+                  f"events ({', '.join(lib_names)}); bound {b_ms:.5f} ms by "
+                  f"{b_by} ({b_flops:.4g} flop at {BF16_FLOP_PER_S:.3g}/s = "
+                  f"{b_to:.5f} ms; {b_bytes} B at {HBM_BYTES_PER_S:.3g} B/s "
+                  f"= {b_tb:.5f} ms); profiler events recorded/launched: "
+                  f"kernel {events_note(timed)}, library "
+                  f"{events_note(lib_timed)}; kernel line: kernel "
+                  f"{ms_line:.5f} ms, {ms_src}; library {lib_line:.5f} ms, "
+                  f"{lib_src}")
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+    except ValueError as e:
+        fail(f"F4: {e}")
+    print(f"({time.time() - t0:.1f} s)")
+    out["f4"] = {str(S): t for S, t in timings.items()}
+    t3, t32 = timings[FLASH_LENS[0]], timings[FLASH_LENS[1]]
+    launches = dict(S2=serve_out["s2"]["launches"]["flash_attention"],
+                    S3=serve_out["s3"]["flash_launches"],
+                    F3=out["f3"]["launches"]["flash_attention"])
+    kernel = dict(
+        name="flash_attention", route="cuda", source=FA_SRC,
+        replaces=FA_REPLACES, launches=launches["S3"],
+        launches_by_path=launches, max_abs_err=err32,
+        max_abs_err_bf16=err16, limit_used=round(used32, 4),
+        limit_used_bf16=round(used16, 4), ms=round(t3["ms"], 5),
+        plain_ms=round(t3["plain_ms"], 4), bound_ms=round(t3["bound_ms"], 6),
+        bound_by=t3["bound_by"], library_ms=round(t3["library_ms"], 5),
+        ms_shape=(f"one InternLM2-1.8B layer's prefill attention, bf16, "
+                  f"causal, B=1 S={FLASH_LENS[0]} H={H} KVH={KVH} D={D}"),
+        ms_source=t3["ms_source"], ms_events=round(t3["ms_events"], 5),
+        library_ms_source=t3["library_ms_source"],
+        library_ms_events=round(t3["library_ms_events"], 5),
+        profiler_events=t3["profiler_events"],
+        library_profiler_events=t3["library_profiler_events"],
+        plain_ms_source="CUDA events",
+        library=("scaled_dot_product_attention(is_causal=True) on the same "
+                 "q and K/V repeated to H heads, [B, H, S, D], repeat "
+                 "excluded"),
+        at_32768={key: (round(t32[key], 5) if isinstance(t32[key], float)
+                        else t32[key])
+                  for key in ("ms", "ms_source", "ms_events", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms",
+                              "library_ms_source", "library_ms_events",
+                              "profiler_events", "library_profiler_events")})
     return kernel, out
 
 

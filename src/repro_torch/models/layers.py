@@ -1,5 +1,6 @@
-"""Transformer building blocks: RMSNorm, RoPE, GQA attention (chunked
-online-softmax for prefill, grouped for decode), SwiGLU MLP.
+"""Transformer building blocks: RMSNorm, RoPE, GQA attention (prefill:
+the flash-attention kernel on the card, chunked online softmax on the CPU;
+grouped for decode), SwiGLU MLP.
 
 The port of the JAX package's ``models/layers.py``, function for function,
 with the same layouts at every public function (``[B, S, H, D]``
@@ -16,8 +17,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.flash_attention.ops import flash_attention_gqa
 from .common import Spec
-from .config import ModelConfig
+from .config import ModelConfig, RunConfig
 
 NEG_INF = -1e30
 
@@ -131,6 +133,22 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l_acc = torch.clamp_min(l_acc, 1e-20)
         out.append(o_acc / l_acc.transpose(1, 2)[..., None])
     return torch.cat(out, dim=1).to(q.dtype)
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, causal: bool, rc: RunConfig) -> torch.Tensor:
+    """The prefill's attention, q [B, S, Hq, D] and k, v [B, S, Hkv, D]
+    from position 0: on the card one launch of the flash-attention kernel
+    (:func:`..kernels.flash_attention.flash_attention_gqa`, f32 or bf16),
+    on the CPU :func:`chunked_attention` with ``rc``'s chunk sizes, as the
+    JAX prefill computes it."""
+    if q.device.type == "cuda":
+        return flash_attention_gqa(q, k, v, causal=causal)
+    if q.device.type == "cpu":
+        return chunked_attention(q, k, v, causal=causal,
+                                 q_chunk=rc.attn_q_chunk,
+                                 kv_chunk=rc.attn_kv_chunk)
+    raise ValueError(f"prefill_attention: no implementation for {q.device}")
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

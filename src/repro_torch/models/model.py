@@ -165,9 +165,7 @@ class Model:
             p = self._layer(params, i)
             h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
             q, k, v = L.attention_qkv(cfg, p["attn"], h, positions)
-            o = L.chunked_attention(q, k, v, causal=cfg.causal,
-                                    q_chunk=rc.attn_q_chunk,
-                                    kv_chunk=rc.attn_kv_chunk)
+            o = L.prefill_attention(q, k, v, causal=cfg.causal, rc=rc)
             x = x + o.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"]
             kc[i, :, :S] = k.to(self.cdt)
             vc[i, :, :S] = v.to(self.cdt)

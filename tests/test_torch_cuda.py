@@ -228,3 +228,110 @@ def test_serving_engine_on_card_matches_cpu(cuda):
             assert LAUNCHES["paged_attention"] == n0
     assert out["cuda"][0] == out["cpu"][0]
     assert out["cuda"][1]["K"] == out["cpu"][1]["K"]
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: the prefill kernel against its plain version
+# ---------------------------------------------------------------------------
+
+#: (B, S, H, KVH, D, causal): ``tests/test_kernels.py``'s four shapes, a
+#: ragged full-width InternLM2 layer, and a ragged non-causal GQA case
+FLASH_SHAPES = [(2, 128, 4, 2, 64, True), (1, 200, 4, 4, 32, True),
+                (2, 96, 8, 2, 64, False), (1, 64, 2, 1, 128, True),
+                (1, 333, 16, 8, 128, True), (2, 77, 8, 2, 32, False)]
+
+
+def _flash_case(dev, dtype, B, S, H, KVH, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, dtype)
+        for shape in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, dtype, shape):
+    """The kernel == ``flash_attention_ref`` on the same card tensors, f32
+    within 5e-5 and bf16 within 2e-2; one launch, the plain run not
+    counted."""
+    from repro_torch.kernels.flash_attention import (
+        LAUNCHES, flash_attention_gqa, flash_attention_ref)
+    B, S, H, KVH, D, causal = shape
+    q, k, v = _flash_case(cuda, dtype, B, S, H, KVH, D)
+    n0 = LAUNCHES["flash_attention"]
+    got = flash_attention_gqa(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == n0 + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert LAUNCHES["flash_attention"] == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_close(got, want, dtype, f"flash {shape}")
+
+
+def test_flash_kernel_is_deterministic_and_reads_strided_views(cuda):
+    """Two calls give the same bits; q, k, v as strided views of one packed
+    [B, S, H + 2 KVH, D] projection give the contiguous inputs' bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    B, S, H, KVH, D = 2, 257, 16, 8, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = _flash_case(cuda, dtype, B, S, H + 2 * KVH, 1, D)[0]
+        q, k, v = qkv.split([H, KVH, KVH], dim=2)
+        assert not q.is_contiguous()
+        a = flash_attention_gqa(q, k, v, causal=True)
+        b = flash_attention_gqa(q, k, v, causal=True)
+        c = flash_attention_gqa(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=True)
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import (
+        LAUNCHES, flash_attention_gqa)
+    n0 = LAUNCHES["flash_attention"]
+    q, k, v = _flash_case(cuda, torch.float32, 1, 64, 4, 2, 48)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_gqa(q, k, v)
+    q, k, v = _flash_case(cuda, torch.float64, 1, 64, 4, 2, 64)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_gqa(q, k, v)
+    q, k, v = _flash_case(cuda, torch.float32, 1, 64, 4, 2, 64)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_gqa(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="group"):
+        flash_attention_gqa(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="device"):
+        flash_attention_gqa(q, k.cpu(), v)
+    assert LAUNCHES["flash_attention"] == n0
+
+
+def test_model_prefill_on_card_runs_the_flash_kernel(cuda, monkeypatch):
+    """``Model.prefill`` of the reduced InternLM2 on the card launches the
+    kernel once per layer, never calls ``chunked_attention``, and gives
+    the CPU prefill's logits and KV cache (f32, 5e-5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.models import Model, RunConfig, params_from_numpy
+    from repro_torch.models import layers as TL
+    from repro_torch.models.common import tree_map
+    model = Model(get_config("internlm2-1.8b", reduced=True),
+                  RunConfig(attn_q_chunk=32, attn_kv_chunk=32,
+                            compute_dtype="float32"))
+    params = model.compute_params(params_from_numpy(model.init_numpy(0)))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, model.cfg.vocab, size=(2, 45)))
+    want_logits, want_state = model.prefill(params, toks, max_seq=64)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the card prefill called chunked_attention")
+    monkeypatch.setattr(TL, "chunked_attention", refuse)
+    gpu = tree_map(lambda a: a.to(cuda), params)
+    n0 = LAUNCHES["flash_attention"]
+    logits, state = model.prefill(gpu, toks.to(cuda), max_seq=64)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == n0 + model.cfg.n_layers
+    torch.testing.assert_close(logits.cpu(), want_logits, atol=5e-5,
+                               rtol=5e-5)
+    for key in ("k", "v"):
+        torch.testing.assert_close(state["pos0"][key].cpu(),
+                                   want_state["pos0"][key], atol=5e-5,
+                                   rtol=5e-5)

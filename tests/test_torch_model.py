@@ -279,7 +279,8 @@ def test_init_decode_state_shape_matches_jax():
 
 def test_models_import_leaves_jax_out():
     code = ("import sys, repro_torch.models, repro_torch.configs, "
-            "repro_torch.kernels.paged_attention; "
+            "repro_torch.kernels.paged_attention, "
+            "repro_torch.kernels.flash_attention; "
             "assert 'jax' not in sys.modules; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'imported the JAX package'")
