@@ -6,4 +6,5 @@ PyTorch versions (:mod:`.ref`) and the op that dispatches between them by
 the device of the tensors (:func:`.ops.flash_attention_gqa`).
 """
 from .ops import LAUNCHES, flash_attention_gqa
-from .ref import attention_ref, flash_attention_ref
+from .ref import (attention_ref, flash_attention_ref, flash_attention_tc_ref,
+                  split_bf16)

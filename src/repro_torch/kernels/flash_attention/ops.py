@@ -3,16 +3,21 @@
 :func:`flash_attention_gqa` is the JAX op of that name without its tile
 sizes and ``interpret`` (the kernel's tiles are its own and change only
 the order of the f32 sums) and with the JAX ``flash_attention``'s
-``scale``.  It dispatches on the device of ``q``: CUDA tensors launch the
+``scale``. It dispatches on the device of ``q``: CUDA tensors launch a
 CUDA kernel (``csrc/flash_attention.cu``) or raise, CPU tensors run the
-plain version (:func:`.ref.flash_attention_ref`), as every kernel wrapper
-of the port does, so that one call holds the kernel's contract on either
-device; there is no fallback from one to the other.  The model's prefill
-does not come here on the CPU (``layers.prefill_attention`` keeps the
-chunked path the JAX prefill computes).  The kernel reads each query
-head's KV head in place, so the GQA repeat of the JAX op is never
-materialised.  ``LAUNCHES["flash_attention"]`` counts the kernel's
-launches.
+plain version (:func:`.ref.flash_attention_ref`), as every kernel
+wrapper of the port does, so that one call holds the kernel's contract
+on either device; there is no fallback from one to the other. On the
+card the dtype alone picks the kernel: f32 inputs go to the FMA kernel
+(f32 products, no TF32), bf16 inputs to the tensor-core kernel (bf16
+operands and f32 sums: ``wgmma`` fed by TMA from a producer warpgroup at
+head dims 32, 64 and 128, its tensor maps built on the host per call; p
+kept in f32 as a bf16 hi/lo pair). The model's
+prefill does not come here on the CPU (``layers.prefill_attention``
+keeps the chunked path the JAX prefill computes). The kernel reads each
+query head's KV head in place, so the GQA repeat of the JAX op is never
+materialised. ``LAUNCHES["flash_attention"]`` counts the kernels'
+launches (one per call).
 """
 from __future__ import annotations
 
@@ -39,8 +44,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise ``ValueError`` on what the kernel does not take: one device
     and dtype (f32 or bf16), q ``[B, S, H, D]`` and k, v ``[B, S,
     KVH, D]`` with ``H % KVH == 0`` and D in :data:`HEAD_DIMS`, the head dim
-    contiguous and every row on a 16-byte boundary (the kernel copies rows
-    16 bytes at a time)."""
+    contiguous and every row on a 16-byte boundary: a 16-byte-aligned base
+    and strides that are multiples of 16 bytes, which both the kernels'
+    16-byte ``cp.async`` copies and TMA's tensor maps demand."""
     _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
            "q, k and v must be [B, S, heads, D]")
     B, S, H, D = q.shape

@@ -12,11 +12,19 @@
   on the card) and indexes KV heads in groups, without materialising the
   GQA repeat.  The kernel is held to this function on the card, and the op
   takes it for tensors that lie on the CPU.
+* :func:`split_bf16` and :func:`flash_attention_tc_ref` — the arithmetic of
+  the bf16 tensor-core kernel written out plainly: q, k, v in bf16, each
+  score an f32 sum of exact bf16 products, the 64-key tiles of the kernel,
+  and ``p @ v`` as ``p_hi @ v + p_lo @ v`` with ``(p_hi, p_lo) =
+  split_bf16(p)``.  The CPU tests hold it to :func:`flash_attention_ref`
+  within one bf16 ulp of the output, the limit the card holds the kernel
+  to; ``p_terms=1`` rounds p once to bf16 instead, which that limit must
+  catch.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,6 +48,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.to(q.dtype)
 
 
+def split_bf16(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``p`` as two bf16 tensors ``(p_hi, p_lo)``: ``p_hi = bf16(p)``,
+    ``p_lo = bf16(p - p_hi)``, so that ``p_hi + p_lo`` keeps p to about
+    2^-16 of its magnitude where ``p_hi`` alone keeps 2^-9."""
+    hi = p.to(torch.bfloat16)
+    return hi, (p - hi.float()).to(torch.bfloat16)
+
+
 @torch.no_grad()
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, scale: Optional[float] = None,
@@ -52,6 +68,28 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     updates the query rows at or past its first key (the rows before it
     are wholly masked there, and a wholly masked block adds
     ``exp(-1e30 - m) = 0``)."""
+    return _flash_walk(q, k, v, causal, scale, kv_block, None)
+
+
+@torch.no_grad()
+def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True,
+                           scale: Optional[float] = None, p_terms: int = 2
+                           ) -> torch.Tensor:
+    """The bf16 tensor-core kernel's arithmetic, plainly: q, k, v rounded to
+    bf16 (a no-op for bf16 inputs), 64-key tiles, and ``p @ v`` summed over
+    the first ``p_terms`` of ``split_bf16(p)`` (2: hi and lo, as the
+    kernel; 1: p rounded once to bf16) → [B, S, H, D] in q's dtype."""
+    if p_terms not in (1, 2):
+        raise ValueError(f"p_terms must be 1 or 2, not {p_terms}")
+    bf = [t.to(torch.bfloat16) for t in (q, k, v)]
+    return _flash_walk(*bf, causal, scale, 64, p_terms).to(q.dtype)
+
+
+def _flash_walk(q, k, v, causal, scale, kv_block, p_terms):
+    """The online-softmax walk of :func:`flash_attention_ref`; ``p @ v``
+    takes p in f32 (``p_terms`` None) or as the first ``p_terms`` bf16
+    parts of :func:`split_bf16`."""
     B, S, H, D = q.shape
     KVH = k.shape[2]
     if H % KVH:
@@ -78,8 +116,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m_prev - m_new)
         l[..., q0:] = l[..., q0:] * alpha + p.sum(-1)
-        acc[..., q0:, :] = (acc[..., q0:, :] * alpha[..., None]
-                            + torch.einsum("bhgqk,bkhd->bhgqd", p, vf))
+        if p_terms is None:
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p, vf)
+        else:
+            pv = sum(torch.einsum("bhgqk,bkhd->bhgqd", part.float(), vf)
+                     for part in split_bf16(p)[:p_terms])
+        acc[..., q0:, :] = acc[..., q0:, :] * alpha[..., None] + pv
         m[..., q0:] = m_new
         del s, p
     o = acc / torch.clamp_min(l, 1e-30)[..., None]    # [B, KVH, G, S, D]

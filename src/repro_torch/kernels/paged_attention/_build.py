@@ -15,7 +15,7 @@ SOURCES = ("paged_attention.cu",)
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.paged_attention_class_pass.argtypes = (
-        [ptr] * 9 + [i32] * 6 + [ctypes.c_float, i32, ptr])
+        [ptr] * 10 + [i32] * 6 + [ctypes.c_float, i32, i32, ptr])
     lib.paged_attention_class_pass.restype = i32
     lib.paged_attention_error_string.argtypes = [i32]
     lib.paged_attention_error_string.restype = ctypes.c_char_p

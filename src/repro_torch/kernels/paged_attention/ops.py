@@ -14,15 +14,22 @@ layers.
 
 :func:`paged_attention_class_pass` dispatches on the device of ``q``: CPU
 tensors run the plain version (:func:`.ref.paged_attention_class_pass_ref`),
-CUDA tensors launch the CUDA kernel (``csrc/paged_attention.cu``) or raise —
-there is no fallback from one to the other.  ``LAUNCHES["paged_attention"]``
-counts the kernel's launches and ``CLASS_LAUNCHES[k]`` those of class k.
+CUDA tensors launch the CUDA kernels (``csrc/paged_attention.cu``) or raise —
+there is no fallback from one to the other.  On the card a class pass splits
+each row's windows over ``n_split`` blocks (:func:`choose_splits`) and one C
+call launches two kernels on the stream: the split kernel, writing partial
+states into a scratch the wrapper allocates, and the combine kernel, which
+merges them into the pass's ``(o, m, l)``.  ``LAUNCHES["paged_attention"]``
+counts the wrapper's class passes (two device kernels each),
+``CLASS_LAUNCHES[k]`` those of class k, and ``CLASS_GRIDS[k]`` holds the
+split kernel's grids ``(KVH, B, n_split)`` that class k launched.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -34,14 +41,20 @@ from .ref import paged_attention_class_pass_ref
 LAUNCHES: Dict[str, int] = {"paged_attention": 0}
 #: kernel launches so far, by class k
 CLASS_LAUNCHES: Dict[int, int] = {}
+#: the split kernel's grids (KVH, B, n_split) launched so far, by class k
+CLASS_GRIDS: Dict[int, Set[Tuple[int, int, int]]] = {}
 HEAD_DIMS = (32, 64, 128, 256)      # the kernel's instantiations (D)
 GMAX = 8                            # its most query rows per KV head
+#: streaming multiprocessors :func:`choose_splits` plans for when it is
+#: not told the card's count (an H100 SXM's)
+SMS = 132
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["paged_attention"] = 0
     CLASS_LAUNCHES.clear()
+    CLASS_GRIDS.clear()
 
 
 def build_descriptors(block_tables: np.ndarray, K_classes: Sequence[int]
@@ -55,6 +68,21 @@ def dma_stats(block_tables: np.ndarray, K_classes: Sequence[int]
     """Descriptor-count reduction (the paper's miss metric, paged-KV
     edition)."""
     return dma_descriptor_count(np.asarray(block_tables), K_classes)
+
+
+def choose_splits(B: int, KVH: int, n_win: int, sms: int = SMS) -> int:
+    """How many blocks split a class pass's windows per (row, KV head):
+    enough that the ``(KVH, B, n_split)`` grid holds at least two blocks
+    per SM (``sms`` of them), never more than the ``n_win`` windows (each
+    split walks at least one), and 1 when there are none."""
+    if n_win <= 0:
+        return 1
+    return max(1, min(n_win, -(-2 * sms // (B * KVH))))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def classes_of(K_classes: Sequence[int]) -> Tuple[int, ...]:
@@ -111,9 +139,10 @@ def prepare_descriptors(descriptors: Dict[int, Tuple[np.ndarray,
 
 
 def _launch(q, k_pool, v_pool, win_idx, covered, kv_lens, k, page_size,
-            scale):
-    """Launch the class-k kernel on checked CUDA tensors; returns
-    (o, m, l)."""
+            scale, n_split=None):
+    """Launch the class-k kernels on checked CUDA tensors, the windows split
+    ``n_split`` ways (default :func:`choose_splits` for the card's SM
+    count); returns (o, m, l)."""
     from . import _build
 
     P2 = 1 << k
@@ -145,7 +174,14 @@ def _launch(q, k_pool, v_pool, win_idx, covered, kv_lens, k, page_size,
     _check(win_idx.shape == (B, n_win) and covered.shape == (B, n_win)
            and kv_lens.shape == (B,), "descriptor tables must be [B, n_win] "
            "and kv_lens [B]")
+    n_split = (choose_splits(B, KVH, n_win, _sm_count(dev.index))
+               if n_split is None else int(n_split))
+    _check(1 <= n_split <= max(n_win, 1),
+           f"n_split {n_split} must lie in 1 .. max(n_win, 1) = "
+           f"{max(n_win, 1)}")
     lib = _build.load()
+    part = torch.empty((n_split, B, H, D + 2), dtype=torch.float32,
+                       device=dev)
     o = torch.empty((B, H, D), dtype=torch.float32, device=dev)
     m = torch.empty((B, H), dtype=torch.float32, device=dev)
     l = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -154,28 +190,30 @@ def _launch(q, k_pool, v_pool, win_idx, covered, kv_lens, k, page_size,
         rc = lib.paged_attention_class_pass(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             win_idx.data_ptr(), covered.data_ptr(), kv_lens.data_ptr(),
-            o.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, KVH, D, n_win,
-            P2 * T, float(scale), _DTYPE_CODE[q.dtype], stream)
+            part.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), B, H,
+            KVH, D, n_win, P2 * T, float(scale), n_split,
+            _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError("paged_attention kernel launch failed: "
                            + lib.paged_attention_error_string(rc).decode())
     LAUNCHES["paged_attention"] += 1
     CLASS_LAUNCHES[k] = CLASS_LAUNCHES.get(k, 0) + 1
+    CLASS_GRIDS.setdefault(k, set()).add((KVH, B, n_split))
     return o, m, l
 
 
 def _class_pass(q, k_pool, v_pool, win_idx, covered, kv_lens, k, page_size,
-                scale):
+                scale, n_split=None):
     """One class pass on tables already checked by
     :func:`check_descriptor` (tensors on q's device): CPU → plain version,
-    CUDA → kernel or raise."""
+    CUDA → kernels (windows split ``n_split`` ways) or raise."""
     if q.device.type == "cpu":
         return paged_attention_class_pass_ref(
             q, k_pool, v_pool, win_idx, covered, kv_lens,
             pages_per_block=1 << k, page_size=page_size, scale=scale)
     if q.device.type == "cuda":
         return _launch(q, k_pool, v_pool, win_idx, covered, kv_lens, k,
-                       page_size, scale)
+                       page_size, scale, n_split)
     raise ValueError(f"paged_attention: no implementation for {q.device}")
 
 
@@ -183,14 +221,16 @@ def _class_pass(q, k_pool, v_pool, win_idx, covered, kv_lens, k, page_size,
 def paged_attention_class_pass(
         q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         win_idx, covered, kv_lens, *, pages_per_block: int, page_size: int,
-        scale: Optional[float] = None
+        scale: Optional[float] = None, n_split: Optional[int] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One class-k pass (``pages_per_block = 2^k``).
 
     q: [B, H, D]; pools: [n_pages, T, KVH, D]; win_idx/covered: [B, n_win]
     numpy arrays or tensors (copied to the host for the range check);
     kv_lens: [B].  Returns the unnormalised ``(o [B,H,D] f32, m [B,H] f32,
-    l [B,H] f32)`` of :func:`.ref.paged_attention_class_pass_ref`.
+    l [B,H] f32)`` of :func:`.ref.paged_attention_class_pass_ref`.  On the
+    card the windows are split ``n_split`` ways (default
+    :func:`choose_splits`), which changes only the order of the f32 sums.
     """
     P2 = int(pages_per_block)
     _check(P2 >= 1 and P2 & (P2 - 1) == 0,
@@ -206,7 +246,7 @@ def paged_attention_class_pass(
                            ).to(dev)
     lens = torch.as_tensor(kv_lens).to(device=dev, dtype=torch.int32)
     return _class_pass(q, k_pool, v_pool, wi, cov, lens.contiguous(), k,
-                       page_size, scale)
+                       page_size, scale, n_split)
 
 
 def merge_partials(parts) -> torch.Tensor:

@@ -10,6 +10,13 @@
   the Pallas ``_class_kernel`` defines it, masked scores ``-1e30``.  The
   kernel is held to this function on the card, and the op takes it for
   tensors that lie on the CPU.
+* :func:`paged_attention_split_pass_ref` — the same pass computed as the
+  CUDA kernels compute it: each row's windows split into ``n_split``
+  contiguous ranges, each range's partial state by the class pass above,
+  the partials combined exactly (``m = max m_s``, weights
+  ``exp(m_s - m)``).  It equals :func:`paged_attention_class_pass_ref` for
+  every ``n_split``, junk windows and inactive rows included; the CPU
+  tests hold it to that.
 """
 from __future__ import annotations
 
@@ -118,3 +125,39 @@ def paged_attention_class_pass_ref(
         l = torch.where(sel, l_new, l)
         o = torch.where(sel[..., None], o_new, o)
     return o.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H)
+
+
+@torch.no_grad()
+def paged_attention_split_pass_ref(
+        q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+        win_idx, covered, kv_lens, *, pages_per_block: int, page_size: int,
+        n_split: int, scale: Optional[float] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One class-k pass as the split and combine kernels compute it:
+    split s walks windows ``[s * n_win // n_split, (s + 1) * n_win //
+    n_split)`` (positions from the range's first window on, so the masks
+    are the whole walk's) into a partial ``(o_s, m_s, l_s)``, and the
+    partials combine to ``m = max m_s``, ``l = sum l_s exp(m_s - m)``,
+    ``o = sum o_s exp(m_s - m)``.  A split with no covered window gives
+    ``(0, -1e30, 0)``; one wholly past ``kv_lens`` gives finite junk at
+    ``m = -1e30``, which a live split weights by 0 and other junk splits
+    by 1, so the per-window walk's ``l`` adds up."""
+    win_idx = _as_tensor(win_idx, q.device, torch.long)
+    covered = _as_tensor(covered, q.device, torch.int32)
+    lens = _as_tensor(kv_lens, q.device, torch.long)
+    n_win = win_idx.shape[1]
+    if not 1 <= n_split <= max(n_win, 1):
+        raise ValueError(f"n_split {n_split} outside 1 .. {max(n_win, 1)}")
+    W = pages_per_block * page_size
+    parts = []
+    for s in range(n_split):
+        lo, hi = s * n_win // n_split, (s + 1) * n_win // n_split
+        parts.append(paged_attention_class_pass_ref(
+            q, k_pool, v_pool, win_idx[:, lo:hi], covered[:, lo:hi],
+            lens - lo * W, pages_per_block=pages_per_block,
+            page_size=page_size, scale=scale))
+    m = torch.stack([p[1] for p in parts]).amax(0)
+    w = [torch.exp(p[1] - m) for p in parts]
+    o = sum(p[0] * wi[..., None] for p, wi in zip(parts, w))
+    l = sum(p[2] * wi for p, wi in zip(parts, w))
+    return o, m, l

@@ -12,6 +12,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from .common import tree_map
 
 
@@ -22,7 +23,9 @@ def _leaf(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def params_from_numpy(tree: Any, device="cpu") -> Any:
+def params_from_numpy(tree: Any, device="cuda") -> Any:
     """Nested dict of arrays (numpy, or anything ``np.asarray`` takes) →
-    the same nested dict of tensors on ``device``, dtypes kept."""
-    return tree_map(lambda a: _leaf(a, device), tree)
+    the same nested dict of tensors on ``device`` (the card unless
+    ``"cpu"`` is asked for; raises without a card), dtypes kept."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _leaf(a, dev), tree)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from . import layers as L
+from .._device import resolve_device
 from .common import Spec, count_params, init_params_numpy, tree_map
 from .config import ModelConfig, RunConfig
 from ..kernels.paged_attention.ops import (classes_of, paged_attention,
@@ -249,8 +250,10 @@ class Model:
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
-                      dtype=torch.bfloat16, device="cpu") -> dict:
-    """Zero dense KV cache for :meth:`Model.decode_step`."""
+                      dtype=torch.bfloat16, device="cuda") -> dict:
+    """Zero dense KV cache for :meth:`Model.decode_step`, on ``device``
+    (the card unless ``"cpu"`` is asked for; raises without a card)."""
+    device = resolve_device(device)
     shape = (n_superblocks(cfg), batch, max_seq, cfg.n_kv_heads,
              cfg.head_dim)
     return {"pos0": {"k": torch.zeros(shape, dtype=dtype, device=device),

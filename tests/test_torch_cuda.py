@@ -11,10 +11,13 @@ The TLB-sweep kernel must equal the plain version bit for bit — counters,
 coverage samples and the whole ``[L, T]`` ppn array — on static, dynamic,
 multi-tenant, nested and parity-fault batches covering all 10 method kinds
 and every policy knob, and it must count one launch per batch.  The
-paged-attention kernel must equal its plain version per class pass
-(o, m, l) and merged, f32 within 5e-5 and bf16 within 2e-2, keep the
--1e30 semantics of wholly masked windows, refuse a window index outside
-the pool, and serve the reduced InternLM2 token for token like the CPU.
+paged-attention kernels must equal their plain version per class pass
+(o, m, l) and merged, f32 within 5e-5 and bf16 within 2e-2, at any split
+of a row's windows over blocks, keep the -1e30 semantics of wholly masked
+windows, refuse a window index outside the pool, and serve the reduced
+InternLM2 token for token like the CPU.  The flash kernels must equal
+their plain version (bf16 also within one bf16 ulp), give the same bits
+twice and from strided views, and refuse rows off 16-byte boundaries.
 """
 import numpy as np
 import pytest
@@ -183,6 +186,61 @@ def test_paged_kernel_junk_window_and_inactive_row(cuda):
     assert torch.isfinite(out).all()
 
 
+def _junk_case(dev):
+    """``test_paged_kernel_junk_window_and_inactive_row``'s pool and class-2
+    tables: row 0 live, row 1 covered but wholly past kv_lens (junk), row
+    2 inactive; 2 windows, so every split count 1 .. 2 is tried."""
+    rng = np.random.default_rng(1)
+    T, KVH, D, H = 16, 2, 64, 4
+    pool = [torch.from_numpy(rng.standard_normal((32, T, KVH, D)).astype(
+        np.float32)).to(dev) for _ in range(2)]
+    q = torch.from_numpy(rng.standard_normal((3, H, D)).astype(
+        np.float32)).to(dev)
+    lens = np.array([20, 0, 0], np.int32)
+    wi = np.array([[0, 0], [3, 0], [0, 0]], np.int32)
+    cov = np.array([[1, 0], [1, 0], [0, 0]], np.int8)
+    return q, pool[0], pool[1], wi, cov, lens, T
+
+
+@pytest.mark.parametrize("n_split", ["1", "2", "3", "7", "chosen", "n_win"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_forced_splits_match_plain(cuda, dtype, n_split):
+    """The windows of a row split over any number of blocks: every class
+    pass (o, m, l) == the plain version (f32 5e-5 / bf16 2e-2), on a
+    fragmented pool case whose class 0 has 64 windows and on the
+    junk-window and inactive-row case, one wrapper launch each."""
+    from repro_torch.kernels.paged_attention import (
+        LAUNCHES, build_descriptors, choose_splits,
+        paged_attention_class_pass, paged_attention_class_pass_ref)
+    q, kp, vp, bt, lens = _pa_case(cuda, dtype, 3, 16, 8, 128, 16)
+    desc = build_descriptors(bt, (3, 1))
+    cases = [(q, kp, vp, *desc[k], lens, 1 << k, 16) for k in (3, 1, 0)]
+    jq, jk, jv, jwi, jcov, jlens, T = _junk_case(cuda)
+    cases.append((jq.to(dtype), jk.to(dtype), jv.to(dtype), jwi, jcov,
+                  jlens, 4, T))
+    for q_, kp_, vp_, wi, cov, lens_, P2, T_ in cases:
+        n_win = wi.shape[1]
+        n = dict(chosen=choose_splits(q_.shape[0], kp_.shape[2], n_win),
+                 n_win=n_win).get(n_split) or min(int(n_split), n_win)
+        n0 = LAUNCHES["paged_attention"]
+        got = paged_attention_class_pass(q_, kp_, vp_, wi, cov, lens_,
+                                         pages_per_block=P2, page_size=T_,
+                                         n_split=n)
+        torch.cuda.synchronize()
+        assert LAUNCHES["paged_attention"] == n0 + 1
+        want = paged_attention_class_pass_ref(q_, kp_, vp_, wi, cov, lens_,
+                                              pages_per_block=P2,
+                                              page_size=T_)
+        for name, a, b in zip("oml", got, want):
+            _assert_close(a, b, torch.float32 if name == "m" else dtype,
+                          f"class {P2} n_split {n} {name}")
+        if P2 == 4:
+            o, m, l = (t.cpu() for t in got)
+            assert torch.all(m[1] == -1e30) and torch.all(l[1] == 4 * T_)
+            assert torch.all(o[2] == 0) and torch.all(m[2] == -1e30) \
+                and torch.all(l[2] == 0)
+
+
 def test_paged_kernel_rejects_out_of_range_window(cuda):
     from repro_torch.kernels.paged_attention import (
         LAUNCHES, paged_attention_class_pass)
@@ -304,6 +362,56 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     assert LAUNCHES["flash_attention"] == n0
 
 
+#: one bf16 ulp of the output: 2^-7 |plain| + 1e-2 rms(plain), the limit
+#: ``chip_smoke.py`` holds the bf16 kernel to
+BF16_ULP_RTOL, BF16_RMS_ATOL = 2.0 ** -7, 1e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_bf16_kernel_within_one_ulp_twice_and_strided(cuda, D,
+                                                            causal):
+    """The tensor-core kernel at every head dim, S not a multiple of its
+    64-row tile, GQA: within one bf16 ulp of the plain version, the same
+    bits twice, and the same bits from strided views of one packed
+    projection."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_gqa, flash_attention_ref)
+    B, S, H, KVH = 2, 333, 8, 2
+    qkv = _flash_case(cuda, torch.bfloat16, B, S, H + 2 * KVH, 1, D,
+                      seed=D)[0]
+    q, k, v = qkv.split([H, KVH, KVH], dim=2)
+    assert not q.is_contiguous()
+    a = flash_attention_gqa(q, k, v, causal=causal)
+    b = flash_attention_gqa(q, k, v, causal=causal)
+    c = flash_attention_gqa(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=causal)
+    assert torch.equal(a, b) and torch.equal(a, c)
+    want = flash_attention_ref(q, k, v, causal=causal).float()
+    rms = want.square().mean().sqrt()
+    limit = BF16_ULP_RTOL * want.abs() + BF16_RMS_ATOL * rms
+    assert bool(((a.float() - want).abs() <= limit).all())
+
+
+def test_flash_wrapper_rejects_unaligned_strides(cuda):
+    """The kernels copy rows 16 bytes at a time: a base or a row stride
+    that is not a multiple of 16 bytes raises before any launch."""
+    from repro_torch.kernels.flash_attention import (
+        LAUNCHES, flash_attention_gqa)
+    n0 = LAUNCHES["flash_attention"]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _flash_case(cuda, dtype, 1, 64, 4, 2, 64)
+        wide = torch.zeros((1, 64, 2 * 64 + 1), dtype=dtype, device=cuda)
+        k_odd = wide[..., :128].unflatten(2, (2, 64))    # row stride 129
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_gqa(q, k_odd, v)
+        flat = torch.zeros(q.numel() + 1, dtype=dtype, device=cuda)
+        q_off = flat[1:].view(q.shape)                   # base off by 1 elt
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_gqa(q_off, k, v)
+    assert LAUNCHES["flash_attention"] == n0
+
+
 def test_model_prefill_on_card_runs_the_flash_kernel(cuda, monkeypatch):
     """``Model.prefill`` of the reduced InternLM2 on the card launches the
     kernel once per layer, never calls ``chunked_attention``, and gives
@@ -316,7 +424,8 @@ def test_model_prefill_on_card_runs_the_flash_kernel(cuda, monkeypatch):
     model = Model(get_config("internlm2-1.8b", reduced=True),
                   RunConfig(attn_q_chunk=32, attn_kv_chunk=32,
                             compute_dtype="float32"))
-    params = model.compute_params(params_from_numpy(model.init_numpy(0)))
+    params = model.compute_params(params_from_numpy(model.init_numpy(0),
+                                                    device="cpu"))
     toks = torch.from_numpy(np.random.default_rng(7).integers(
         0, model.cfg.vocab, size=(2, 45)))
     want_logits, want_state = model.prefill(params, toks, max_seq=64)

@@ -22,7 +22,9 @@ from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (LAUNCHES, attention_ref,
                                                  flash_attention_gqa,
-                                                 flash_attention_ref)
+                                                 flash_attention_ref,
+                                                 flash_attention_tc_ref,
+                                                 split_bf16)
 from repro_torch.models import RunConfig
 from repro_torch.models import layers as TL
 
@@ -148,6 +150,79 @@ def test_flash_op_rejects_what_the_kernel_does_not_take(case, match):
         flash_attention_gqa(q, k, v)
 
 
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core kernel's arithmetic, emulated plainly
+# ---------------------------------------------------------------------------
+
+def _ulp_used(got, want):
+    """The largest share of one bf16 ulp of the output (``chip_smoke.py``'s
+    ``BF16_ULP_RTOL * |want| + BF16_RMS_ATOL * rms(want)``) an element of
+    ``got`` differs from ``want`` by."""
+    cs = _chip_smoke()
+    want = want.float()
+    rms = want.square().mean().sqrt()
+    limit = cs.BF16_ULP_RTOL * want.abs() + cs.BF16_RMS_ATOL * rms
+    return float(((got.float() - want).abs() / limit).max())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_bf16_keeps_p_to_2_16(seed):
+    """``p_hi = bf16(p)`` exactly, and ``p_hi + p_lo`` keeps p to 2^-16 of
+    its magnitude over the whole range softmax weights take."""
+    rng = np.random.default_rng(seed)
+    p = torch.from_numpy(np.exp(-rng.uniform(0, 80, 10_000)).astype(
+        np.float32))
+    hi, lo = split_bf16(p)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, p.to(torch.bfloat16))
+    err = (hi.double() + lo.double() - p.double()).abs()
+    assert bool((err <= 2.0 ** -16 * p.double()).all())
+    assert float((hi.double() - p.double()).abs().max() / p.max()) > 2 ** -12
+
+
+#: (B, S, H, KVH, D, causal): every head dim, ragged S, GQA 1/2/4 and MQA
+TC_SHAPES = [(1, 100, 4, 4, 32, True), (2, 77, 4, 2, 64, False),
+             (1, 150, 8, 2, 128, True), (1, 90, 4, 1, 64, True),
+             (2, 130, 8, 2, 32, False), (1, 200, 2, 1, 128, False)]
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D,causal", TC_SHAPES)
+def test_tensor_core_arithmetic_within_one_ulp(B, S, H, KVH, D, causal):
+    """bf16 scores with f32 sums, 64-key tiles and hi/lo ``p @ v``: the
+    bf16 kernel's arithmetic equals the contract within one bf16 ulp of
+    the output, the limit the card holds the kernel to."""
+    q, k, v = _t(*_inputs(B, S, H, KVH, D, seed=S), dtype=torch.bfloat16)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    got = flash_attention_tc_ref(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _ulp_used(got, want) <= 1.0
+
+
+def test_one_ulp_limit_catches_p_rounded_once():
+    """A case built to show it: keys in pairs whose scores differ by ~1e-2
+    and whose values cancel, so the output is a small difference of large
+    terms.  p rounded once to bf16 (2^-9) moves it by several bf16 ulps,
+    past the limit; the hi/lo pair (2^-16) stays inside."""
+    rng = np.random.default_rng(0)
+    B, S, H, KVH, D = 1, 128, 2, 1, 32
+    q = np.zeros((B, S, H, D), np.float32)
+    q[..., 0] = 1.0
+    q[..., 1] = rng.uniform(0.5, 1.5, (B, S, H))
+    k = np.zeros((B, S, KVH, D), np.float32)
+    first = rng.uniform(1.0, 2.0, S // 2)
+    k[0, 0::2, 0, 0], k[0, 1::2, 0, 0] = first, first + 1 / 16
+    k[0, :, 0, 1] = rng.uniform(-1, 1, S)
+    u = rng.standard_normal((S // 2, D)).astype(np.float32)
+    v = np.zeros((B, S, KVH, D), np.float32)
+    v[0, 0::2, 0], v[0, 1::2, 0] = u, -u
+    q, k, v = _t(q, k, v, dtype=torch.bfloat16)
+    want = flash_attention_ref(q, k, v, causal=False)
+    assert _ulp_used(flash_attention_tc_ref(q, k, v, causal=False),
+                     want) <= 1.0
+    assert _ulp_used(flash_attention_tc_ref(q, k, v, causal=False,
+                                            p_terms=1), want) > 2.0
+
+
 def test_prefill_attention_on_cpu_is_chunked_attention():
     """On the CPU the prefill's attention is exactly the chunked path the
     JAX prefill computes (so ``Model.prefill`` stays what
@@ -255,8 +330,7 @@ def test_chip_smoke_kernel_rows_expects_the_wrapper_count(
     """``kernel_rows`` expects as many events of the port's kernel as its
     launch count grew by, takes a profile short of them again (3 tries),
     and after that keeps the mean of the recorded launches with
-    ``recorded < expected`` saying so, which sends the kernel line to the
-    CUDA-events time (``line_ms``).  The profiler is replaced here by a
+    ``recorded < expected`` saying so.  The profiler is replaced here by a
     script of what it records: 3 calls of 2 ms each, the last dropped."""
     cs = _chip_smoke()
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
@@ -289,6 +363,78 @@ def test_chip_smoke_kernel_rows_expects_the_wrapper_count(
     assert cs.events_note(row) == (
         "2/3 (MISSING: mean of the recorded launches)"
         if dropped_profiles >= 3 else "3/3")
-    assert cs.line_ms(7.0, row) == (
-        (7.0, "CUDA events (the profiler recorded 2 of 3 launches)")
-        if dropped_profiles >= 3 else (row["ms"], "device time (profiler)"))
+
+
+def test_chip_smoke_kernel_rows_expects_each_kernel_of_a_launch(
+        monkeypatch):
+    """The paged wrapper launches a split and a combine kernel per call:
+    with both name fragments, each kernel is expected as many events as
+    the wrapper's count grew by; a profile that never records one of them
+    raises."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+    counts = dict(paged_attention=0)
+    monkeypatch.setattr(cs, "launch_counts", lambda: dict(counts))
+    recorded = {"paged_class_split_kernel<bf16, 128>": 1.0,
+                "paged_class_combine_kernel": 0.01}
+
+    def fake_times(f):
+        n0 = counts["paged_attention"]
+        f()
+        n = counts["paged_attention"] - n0
+        rows = {"fill": [0.01 * max(n, 1), max(n, 1)]}
+        if n:
+            rows.update({name: [ms * n, n] for name, ms in recorded.items()})
+        return rows
+    monkeypatch.setattr(cs, "_kernel_times", fake_times)
+
+    def fn():
+        counts["paged_attention"] += 1
+    got = cs.device_ms(fn, 4, lambda: None, cs.PA_KERNELS,
+                       "paged_attention")
+    assert got["recorded"] == got["expected"] == 8
+    assert abs(got["ms"] - 1.01) < 1e-12
+    del recorded["paged_class_combine_kernel"]
+    with pytest.raises(ValueError, match="no device time"):
+        cs.device_ms(fn, 4, lambda: None, cs.PA_KERNELS, "paged_attention")
+
+
+#: what ``cuobjdump -sass`` prints, cut down: the flash kernels at a few
+#: head dims (wgmma products in bf16, FMAs in f32)
+SASS = """
+        Function : _ZN51_GLOBAL__N__x2wg29flash_attention_fwd_wg_kernelILi128EEEvPK13__nv_bfloat16
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/              @!PT LDS RZ, [RZ] ;
+        /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, R4, gdesc[UR4], R24 ;
+        /*0030*/               @P0 HGMMA.64x128x16.F32.BF16 R28, R4, gdesc[UR8], R28 ;
+        /*0040*/                   FFMA R2, R3, R4, R2 ;
+        Function : _ZN51_GLOBAL__N__x2wg29flash_attention_fwd_wg_kernelILi64EEEvPK13__nv_bfloat16
+        /*0000*/                   HGMMA.64x64x16.F32.BF16 R24, R4, gdesc[UR4], R24 ;
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR8], R24, gsb0 ;
+        Function : _ZN51_GLOBAL__N__x26flash_attention_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_
+        /*0000*/                   FFMA R2, R3, R4, R2 ;
+        /*0010*/                   FFMA.FTZ R5, R3, R4, R5 ;
+        /*0020*/                   FMUL R2, R3, R4 ;
+"""
+
+
+@pytest.mark.parametrize("case", ["ok", "bf16_on_cuda_cores", "f32_tf32"])
+def test_chip_smoke_flash_sass_mix(case):
+    """Phase 1's SASS line: HGMMA, HMMA and FFMA counted per
+    instantiation (predicated and dotted opcodes too); a bf16 kernel
+    without wgmma products, or an f32 one with a tensor-core product,
+    fails."""
+    cs = _chip_smoke()
+    sass = SASS
+    if case == "bf16_on_cuda_cores":
+        sass = sass.replace("HGMMA.64x64x16.F32.BF16", "FFMA")
+    elif case == "f32_tf32":
+        sass = sass.replace("FMUL R2", "HMMA.1684.F32.TF32 R2")
+    if case != "ok":
+        with pytest.raises(ValueError, match="bf16|f32"):
+            cs.flash_sass_mix(sass)
+        return
+    assert cs.flash_sass_mix(sass) == {
+        "bf16 D=128": {"HGMMA": 2, "HMMA": 0, "FFMA": 1},
+        "bf16 D=64": {"HGMMA": 2, "HMMA": 0, "FFMA": 0},
+        "f32 D=128": {"HGMMA": 0, "HMMA": 0, "FFMA": 2}}

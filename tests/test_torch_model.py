@@ -188,7 +188,7 @@ def test_prefill_and_decode_match_jax(weights, arch, cdt):
     jm, tm = _models(arch, cdt)
     npp = weights[arch]
     jp = jax.tree.map(jnp.asarray, npp)
-    tp = tm.compute_params(params_from_numpy(npp))
+    tp = tm.compute_params(params_from_numpy(npp, device="cpu"))
     rng = np.random.default_rng(3)
     toks = rng.integers(0, tm.cfg.vocab, size=(2, 19))
     jl, js = jm.prefill(jp, jnp.asarray(toks, jnp.int32), max_seq=40)
@@ -216,7 +216,7 @@ def test_decode_step_paged_matches_jax(weights, cdt):
     jm, tm = _models("internlm2-1.8b", cdt)
     npp = weights["internlm2-1.8b"]
     jp = jax.tree.map(jnp.asarray, npp)
-    tp = tm.compute_params(params_from_numpy(npp))
+    tp = tm.compute_params(params_from_numpy(npp, device="cpu"))
     rng = np.random.default_rng(4)
     cfg, T, n_pages = tm.cfg, 8, 32
     shape = (cfg.n_layers, n_pages, T, cfg.n_kv_heads, cfg.head_dim)
@@ -249,7 +249,8 @@ def test_paged_step_equals_dense_step(weights):
     """The paged step and the dense step are one function: the same
     tokens over the same cache contents give the same logits."""
     _, tm = _models("internlm2-1.8b")
-    tp = tm.compute_params(params_from_numpy(weights["internlm2-1.8b"]))
+    tp = tm.compute_params(params_from_numpy(weights["internlm2-1.8b"],
+                                             device="cpu"))
     rng = np.random.default_rng(6)
     toks = torch.from_numpy(rng.integers(0, tm.cfg.vocab, size=(1, 21)))
     _, dense = tm.prefill(tp, toks, max_seq=32)
@@ -273,8 +274,23 @@ def test_paged_step_equals_dense_step(weights):
 def test_init_decode_state_shape_matches_jax():
     jm, tm = _models("internlm2-1.8b")
     js = j_init_decode_state(jm.cfg, jm.rc, 2, 24, jnp.float32)
-    ts = init_decode_state(tm.cfg, 2, 24, torch.float32)
+    ts = init_decode_state(tm.cfg, 2, 24, torch.float32, device="cpu")
     assert tuple(ts["pos0"]["k"].shape) == js["pos0"]["k"].shape
+
+
+@pytest.mark.parametrize("entry", ["params_from_numpy", "init_decode_state"])
+def test_weights_and_decode_state_default_to_the_card(entry):
+    """Without a ``device`` both helpers put their tensors on the card, as
+    every entry point of the port does: with no card they raise instead
+    of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    tm = Model(get_config("internlm2-1.8b", reduced=True), RunConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        if entry == "params_from_numpy":
+            params_from_numpy({"w": np.zeros((2, 3), np.float32)})
+        else:
+            init_decode_state(tm.cfg, 1, 8)
 
 
 def test_models_import_leaves_jax_out():

@@ -126,6 +126,81 @@ def test_class_pass_matches_jax_kernel(B, H, KVH, D, T):
                                **TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KVH,D,T", PAGED_SHAPES)
+def test_split_pass_matches_class_pass_and_jax(B, H, KVH, D, T, dtype):
+    """The class pass as the CUDA kernels split and combine it equals the
+    one walk (``paged_attention_class_pass_ref``) and the Pallas kernel for
+    every ``n_split`` from 1 to ``n_win``: splits with no covered window,
+    splits wholly past kv_lens (rows at a third of their length) and an
+    inactive row included."""
+    q, kp, vp, bt, lens = _case(7 + D, B, H, KVH, D, T)
+    bt = np.concatenate([bt, np.full((1, bt.shape[1]), -1, bt.dtype)])
+    q = np.concatenate([q, q[:1]])
+    lens = np.concatenate([lens // 3, [0]]).astype(np.int32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    (jq, jk, jv), (tq, tk, tv) = _both((q, kp, vp), jdt, getattr(torch,
+                                                                 dtype))
+    tol = TOL if dtype == "float32" else TOL_BF16
+    desc = t_ops.build_descriptors(bt, (3, 1))
+    for k, (wi, cov) in desc.items():
+        kw = dict(pages_per_block=1 << k, page_size=T)
+        want = t_ref.paged_attention_class_pass_ref(tq, tk, tv, wi, cov,
+                                                    lens, **kw)
+        jax_want = j_pa.paged_attention_class_pass(
+            jq, jk, jv, jnp.asarray(wi), jnp.asarray(cov),
+            jnp.asarray(lens), interpret=True, **kw)
+        for n_split in range(1, wi.shape[1] + 1):
+            got = t_ref.paged_attention_split_pass_ref(
+                tq, tk, tv, wi, cov, lens, n_split=n_split, **kw)
+            for a, b, c in zip(got, want, jax_want):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), **tol)
+                np.testing.assert_allclose(a.numpy(),
+                                           np.asarray(c, np.float32), **tol)
+            o, m, l = got
+            assert torch.all(o[-1] == 0) and torch.all(m[-1] == -1e30) \
+                and torch.all(l[-1] == 0)
+
+
+@pytest.mark.parametrize("B,KVH,n_win,want", [
+    (1, 8, 32, 32),       # F3's class 6: 8 blocks -> 32 splits, 256 blocks
+    (8, 8, 4, 4),         # S3's class 6: 64 blocks x 4 windows
+    (8, 8, 256, 5),       # 64 blocks -> 5 splits, 320 >= 264
+    (1, 8, 2048, 33),     # a 32k row's class 0: 33 x 8 = 264
+    (1, 8, 0, 1),         # no windows: one split writes (0, -1e30, 0)
+    (33, 8, 100, 1),      # 264 blocks already
+    (2, 1, 1000, 132)])
+def test_choose_splits(B, KVH, n_win, want):
+    """Enough splits for two blocks per SM (264 on 132 SMs), never more
+    than the windows, 1 when there are none."""
+    got = t_ops.choose_splits(B, KVH, n_win)
+    assert got == want
+    assert 1 <= got <= max(n_win, 1)
+    assert got == max(n_win, 1) or B * KVH * got >= 2 * t_ops.SMS
+
+
+@pytest.mark.parametrize("B,KVH,n_win,sms,want", [
+    (1, 8, 2048, 114, 29),    # an H100 PCIe's 114 SMs: 29 x 8 = 232 >= 228
+    (1, 8, 32, 132, 32),      # F3's class 6 as on the H100 SXM
+    (8, 8, 256, 16, 1)])      # a small card: 64 blocks already fill it
+def test_choose_splits_plans_for_the_cards_sm_count(B, KVH, n_win, sms,
+                                                    want):
+    """The wrapper passes the card's SM count: two blocks per SM of that
+    card, still never more than the windows."""
+    got = t_ops.choose_splits(B, KVH, n_win, sms)
+    assert got == want
+    assert got == n_win or B * KVH * got >= 2 * sms
+
+
+def test_split_pass_rejects_a_split_count_past_the_windows():
+    q, kp, vp, bt, lens = _case(3, 2, 4, 2, 32, 8)
+    wi, cov = t_ops.build_descriptors(bt, (2,))[2]
+    with pytest.raises(ValueError, match="n_split"):
+        t_ref.paged_attention_split_pass_ref(
+            *_both((q, kp, vp))[1], wi, cov, lens, pages_per_block=4,
+            page_size=8, n_split=wi.shape[1] + 1)
+
+
 def test_gather_kv_matches_jax():
     q, kp, vp, bt, lens = _case(3, 2, 4, 2, 32, 8)
     want = j_ref.gather_kv(jnp.asarray(kp), jnp.asarray(bt), 8)

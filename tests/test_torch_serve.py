@@ -86,7 +86,7 @@ def test_engine_matches_jax(models, workload):
     want = _serve(JServingEngine(jm, jax.tree.map(jax.numpy.asarray, params),
                                  JEngineConfig(**ec, interpret=True)),
                   prompts, max_new)
-    got = _serve(ServingEngine(tm, params_from_numpy(params),
+    got = _serve(ServingEngine(tm, params_from_numpy(params, device="cpu"),
                                EngineConfig(**ec), device="cpu"),
                  prompts, max_new)
     assert got == want
@@ -101,14 +101,15 @@ def test_engine_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="cuda"):
-        ServingEngine(tm, params_from_numpy(tm.init_numpy(0)),
+        ServingEngine(tm, params_from_numpy(tm.init_numpy(0), device="cpu"),
                       EngineConfig())
 
 
 def test_add_request_rejects_what_can_never_be_served(models):
     _, tm, params = models
-    eng = ServingEngine(tm, params_from_numpy(params), EngineConfig(
-        page_size=8, num_pages=4, max_batch=1, max_seq=64), device="cpu")
+    eng = ServingEngine(tm, params_from_numpy(params, device="cpu"),
+                        EngineConfig(page_size=8, num_pages=4, max_batch=1,
+                                     max_seq=64), device="cpu")
     with pytest.raises(ValueError, match="max_seq"):
         eng.add_request([1] * 60, max_new_tokens=5)
     with pytest.raises(ValueError, match="pool"):
@@ -121,7 +122,7 @@ def test_quarantine_recomputes_token_exactly(models):
     it; re-prefill rebuilds its KV elsewhere and it finishes with the
     fault-free tokens; the retired pages leave the pool."""
     _, tm, params = models
-    tp = params_from_numpy(params)
+    tp = params_from_numpy(params, device="cpu")
     ec = EngineConfig(page_size=8, num_pages=32, max_batch=2, max_seq=64)
     prompts, max_new = _prompts(9, [20, 12]), 5
     clean, _ = _serve(ServingEngine(tm, tp, ec, device="cpu"), prompts,
@@ -155,7 +156,7 @@ def test_chip_smoke_dense_check_on_the_cpu(models):
     token."""
     cs = _chip_smoke()
     _, tm, params = models
-    tp = tm.compute_params(params_from_numpy(params))
+    tp = tm.compute_params(params_from_numpy(params, device="cpu"))
     prompts = _prompts(5, [9, 21, 14])
     eng = ServingEngine(tm, tp, EngineConfig(page_size=8, num_pages=64,
                                              max_batch=2, max_seq=64),
@@ -220,6 +221,35 @@ def test_chip_smoke_paged_bound_counts_live_tokens():
     assert n_bytes == (2 * live * KVH * D * 2 + B * H * D * 2
                        + 3 * (B * H * D * 4 + 2 * B * H * 4))
     assert flops == 4 * live * H * D and by == "bytes" and ms == t_b
+
+
+@pytest.mark.parametrize("case", ["agree", "o_off", "m_off", "l_off"])
+def test_chip_smoke_parts_vs_plain_holds_each_class_and_the_merge(case):
+    """``chip_smoke.parts_vs_plain`` (S4's, S5's and F3's check of the
+    class passes against the plain version): each class's (o, m, l) and
+    the merged output within atol + rtol * |plain|, a junk row's m of
+    -1e30 equal in both; an element past the limit raises, naming its
+    class and tensor."""
+    cs = _chip_smoke()
+    g = torch.Generator().manual_seed(0)
+    want = [(torch.randn(2, 4, 8, generator=g), torch.randn(2, 4, generator=g),
+             torch.rand(2, 4, generator=g) + 1) for _ in range(2)]
+    want[1][1][1] = -1e30                      # class 0, row 1: junk
+    tol = cs.PA_TOL["float32"]
+    got = [tuple(t.clone() for t in p) for p in want]
+    got[0][0].add_(tol / 4)                    # within the limit
+    if case != "agree":
+        i = "oml".index(case[0])
+        got[1][i].view(-1)[1] += 10 * tol * (
+            1 + abs(float(want[1][i].view(-1)[1])))
+        with pytest.raises(ValueError, match=f"class 0 {case[0]}:"):
+            cs.parts_vs_plain((2, 0), got, want, tol)
+        return
+    errs = cs.parts_vs_plain((2, 0), got, want, tol)
+    assert set(errs) == {"o", "m", "l", "merged"}
+    assert errs["o"] == pytest.approx(tol / 4, rel=0.05)
+    assert errs["m"] == errs["l"] == 0
+    assert 0 < errs["merged"] < tol
 
 
 def test_serve_fixture_is_consistent():
