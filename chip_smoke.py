@@ -21,8 +21,9 @@ Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  Phases, each fatal on failure:
 
 1. build — compile the three kernels with ``nvcc`` at once (one process
-   per source) and print what ``-Xptxas -v`` says for the TLB sweep
-   (registers, shared memory, spills); print the flash library's SASS
+   per source) and print what ``-Xptxas -v`` says for the TLB sweep's four
+   templates (registers, stack frame, spills), failing where any has a
+   local-memory stack frame or spills; print the flash library's SASS
    instruction mix (``cuobjdump -sass``: HGMMA, HMMA and FFMA per
    instantiation), failing where a bf16 instantiation has no wgmma
    product (HGMMA) or an f32 one has a tensor-core product (TF32) or no
@@ -37,7 +38,11 @@ read just after it.  Phases, each fatal on failure:
    the first 2,048 accesses of the four full-footprint worlds under the 12
    methods plus the subregion, cache-TLB and dead-protect kinds; a small
    dynamic world under both coherence policies; a small multi-tenant
-   world under both context-switch policies (the switch template).  The
+   world under both context-switch policies (the switch template); the
+   edge batches of ``edge_batches`` (probe orders with pred = -1, pred
+   outside kvals, duplicate classes and -1 holes, hits at the last
+   position, a lane with t_real = 0, short lanes whose t_real falls
+   before a later shootdown, 2- and 3-way L2s beside 8).  The
    plain version issues every step as many small torch operations, about
    10 ms a step on the card, so the Table 4 batch's 163,840 steps would
    take it close to half an hour: at that shape the kernel is held to the
@@ -45,7 +50,11 @@ read just after it.  Phases, each fatal on failure:
 4. timing with CUDA events (median of 5 after a warm-up; every CUDA-events
    time here is taken behind a ~1 ms spin queued on the stream, so that
    it holds no host launch cost) of the kernel on the phase-2 batch and of
-   kernel and plain version on the phase-3 batch;
+   kernel and plain version on the phase-3 batch; the clock64 cycles each
+   lane's block took (min, median, max, and the slowest lane's method and
+   mapping); the roofline bound and the chain floor (the longest lane's
+   steps times one dependent shared-memory round, measured on the card);
+   ``pack_batch`` split by function on the host clock;
 
 S1. the paged-attention kernel's ``-Xptxas -v`` report;
 S2. InternLM2-1.8B at full width (24 layers, d_model 2048, 16 heads over 8
@@ -353,6 +362,129 @@ def bound(lanes, stacks, st0, seg_bounds, results, ops_per_s):
     t_ops = n_ops / ops_per_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", n_bytes, n_ops, t_bytes, t_ops)
+
+
+def ptxas_functions(report: str) -> dict:
+    """Per entry function of an ``-Xptxas -v`` report: registers, stack
+    frame, spill stores and loads (bytes) and static shared memory."""
+    import re
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), dict(
+                registers=0, stack=0, spill_stores=0, spill_loads=0,
+                smem=0))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem"] = int(m.group(1))
+    return out
+
+
+#: tlb_sweep_kernel<WITH_SWITCH, GENERAL>: with and without the switch
+#: pass, for the compiled lane kinds and for the general step
+TLB_TEMPLATES = 4
+
+
+def check_tlb_ptxas(report: str) -> dict:
+    """The TLB kernel's templates from the ptxas report; raises
+    ``ValueError`` where one is missing or any uses local memory (a stack
+    frame or spills)."""
+    funcs = {k: v for k, v in ptxas_functions(report).items()
+             if "tlb_sweep_kernel" in k}
+    if len(funcs) != TLB_TEMPLATES:
+        raise ValueError(f"expected the {TLB_TEMPLATES} tlb_sweep_kernel "
+                         f"templates in the ptxas report, found "
+                         f"{sorted(funcs)}")
+    for name, f in funcs.items():
+        if f["stack"] or f["spill_stores"] or f["spill_loads"]:
+            raise ValueError(f"{name} uses local memory: {f}")
+    return funcs
+
+
+def chain_floor(lanes, round_cycles: float, sm_mhz: float):
+    """The least time a serial chain of the batch could take: the longest
+    real lane's steps, one dependent shared-memory round each, at the SM
+    clock.  Returns (ms, longest t_real)."""
+    import numpy as np
+    steps = int(np.asarray(lanes["t_real"]).max())
+    return steps * round_cycles / (sm_mhz * 1e3), steps
+
+
+def lane_spread(cycles, cells, kinds_of, sm_mhz: float) -> dict:
+    """Per-lane clock64 cycles of one launch: min, median and max over the
+    real lanes, in cycles and in ms at the SM clock, the slowest lane's
+    method and mapping, and the mean cycles per access of each method kind
+    (``+pred``: with the predictor)."""
+    import numpy as np
+    c = np.asarray(cycles)[:len(cells)].astype(np.int64)
+    j = int(c.argmax())
+    ms = lambda x: float(x) / (sm_mhz * 1e3)  # noqa: E731
+    per_access = {}
+    for cyc, cell in zip(c, cells):
+        kind = cell.spec.kind + ("+pred" if cell.spec.use_predictor else "")
+        per_access.setdefault(kind, []).append(cyc / cell.trace.shape[0])
+    return dict(min_cycles=int(c.min()), median_cycles=float(np.median(c)),
+                max_cycles=int(c.max()), min_ms=ms(c.min()),
+                median_ms=ms(np.median(c)), max_ms=ms(c.max()),
+                slowest_lane=j, slowest_method=cells[j].spec.name,
+                slowest_kind=cells[j].spec.kind, slowest_mapping=kinds_of[j],
+                pad_lanes_max_cycles=int(np.asarray(cycles)[len(cells):].max())
+                if len(cycles) > len(cells) else None,
+                cycles_per_access={k: float(np.mean(v))
+                                   for k, v in per_access.items()})
+
+
+#: the packing functions ``pack_breakdown`` times, by module
+PACK_PARTS = (("lane_program", "_map_record"), ("lane_program", "_fill_profile"),
+              ("lane_program", "_pad_stack"), ("lane_program", "cluster_bitmap"),
+              ("sweep", "init_batched_state"))
+
+
+def pack_breakdown(cells):
+    """``pack_batch(cells)`` timed by the host clock and split by function:
+    the seconds spent in each of ``PACK_PARTS`` (``_pad_stack`` holds the
+    stacking of the record stacks) and the rest.  Wraps the functions for
+    the one call and puts them back.  Returns ``(packed, seconds)``."""
+    import importlib
+    spent, saved = {}, []
+
+    def timed(f, key):
+        def g(*a, **k):
+            t = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t
+        return g
+    try:
+        for mod_name, name in PACK_PARTS:
+            mod = importlib.import_module(f"repro_torch.core.{mod_name}")
+            f = getattr(mod, name)
+            saved.append((mod, name, f))
+            spent[name] = 0.0
+            setattr(mod, name, timed(f, name))
+        sweep = importlib.import_module("repro_torch.core.sweep")
+        t = time.perf_counter()
+        packed = sweep.pack_batch(cells)
+        total = time.perf_counter() - t
+    finally:
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+    spent["rest"] = total - sum(spent.values())
+    spent["total"] = total
+    return packed, spent
 
 
 # ---------------------------------------------------------------------------
@@ -1179,6 +1311,8 @@ def main() -> int:
                                                    run_lanes_ref)
         from repro_torch.kernels.tlb_sweep.ops import (as_tensors,
                                                        prepare_cuda)
+        from repro_torch.kernels.tlb_sweep.ops import (
+            round_cycles as tlb_round_cycles)
         from repro_torch.kernels.paged_attention import _build as pa_build
         from repro_torch.kernels.paged_attention import ops as pa_ops
         from repro_torch.kernels.flash_attention import _build as fa_build
@@ -1207,10 +1341,14 @@ def main() -> int:
                 fail(f"kernel build failed: {e}")
             print(f"built {os.path.relpath(str(lib), HERE)}")
     print(f"the three kernels built in {time.time() - t0:.1f} s")
-    for line in _build.ptxas_report().splitlines():
-        if ("Compiling" in line or "registers" in line or "spill" in line
-                or "smem" in line):
-            print("  " + line.strip())
+    try:
+        tlb_ptxas = check_tlb_ptxas(_build.ptxas_report())
+    except ValueError as e:
+        fail(f"TLB kernel ptxas: {e}")
+    for name, f in sorted(tlb_ptxas.items()):
+        print(f"  {name}: {f['registers']} registers, {f['stack']} B stack "
+              f"frame, {f['spill_stores']}/{f['spill_loads']} B spill "
+              f"stores/loads")
     from repro_torch.kernels._nvcc import find_nvcc
     cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
     proc = subprocess.run([cuobjdump, "-sass", str(fa_build.library_path())],
@@ -1302,42 +1440,47 @@ def main() -> int:
     prefix_cells = [SweepCell(s, m, pre) for kind, m, tr in worlds
                     for pre in (tr[:PREFIX],) for s in roster(m, tc) + accel]
     dyn_cells, mt_cells = small_worlds(tc, SweepCell, np)
+    edges = edge_batches(tc, SweepCell, np)
     max_err = 0
     plain_batch = None
-    for name, cs in (("3a full-footprint prefix", prefix_cells),
-                     ("3b dynamic", dyn_cells), ("3c multi-tenant", mt_cells)):
-        kinds = sorted({c.spec.kind for c in cs})
-        for group in batches_of(cs, range(len(cs))):
-            lanes, stacks, st0, sb = pack_batch([cs[i] for i in group])
-            lt, stt, s0t = as_tensors(lanes, stacks, st0, dev)
-            k_st, k_pp = run_lanes(lt, stt, s0t, sb)
-            torch.cuda.synchronize()
-            r_st, r_pp = run_lanes_ref(lt, stt, s0t, sb)
-            torch.cuda.synchronize()
-            for a_, b_ in ((k_st["counters"], r_st["counters"]),
-                           (k_st["cov_samples"], r_st["cov_samples"]),
-                           (k_pp, r_pp)):
-                if a_.shape != b_.shape:
-                    fail(f"{name}: kernel and plain shapes differ")
-                err = int((a_.long() - b_.long()).abs().max().item())
-                max_err = max(max_err, err)
-                if err != 0:
-                    fail(f"{name}: kernel differs from the plain version "
-                         f"(max abs err {err})")
-            if plain_batch is None:
-                plain_batch = (lt, stt, s0t, sb)
-            print(f"{name}: L={lanes['t_real'].shape[0]} T={sb[-1]} "
-                  f"segments={len(sb) - 1} kinds={len(kinds)} switch-"
-                  f"template={needs_switch_pass(lanes)}: equal")
+    batches = [(name, pack_batch([cs[i] for i in group]),
+                sorted({c.spec.kind for c in cs}))
+               for name, cs in (("3a full-footprint prefix", prefix_cells),
+                                ("3b dynamic", dyn_cells),
+                                ("3c multi-tenant", mt_cells))
+               for group in batches_of(cs, range(len(cs)))]
+    batches += [(f"3d edge batch {name}", packed, None)
+                for name, packed in edges.items()]
+    for name, (lanes, stacks, st0, sb), kinds in batches:
+        lt, stt, s0t = as_tensors(lanes, stacks, st0, dev)
+        k_st, k_pp = run_lanes(lt, stt, s0t, sb)
+        torch.cuda.synchronize()
+        r_st, r_pp = run_lanes_ref(lt, stt, s0t, sb)
+        torch.cuda.synchronize()
+        for a_, b_ in ((k_st["counters"], r_st["counters"]),
+                       (k_st["cov_samples"], r_st["cov_samples"]),
+                       (k_pp, r_pp)):
+            if a_.shape != b_.shape:
+                fail(f"{name}: kernel and plain shapes differ")
+            err = int((a_.long() - b_.long()).abs().max().item())
+            max_err = max(max_err, err)
+            if err != 0:
+                fail(f"{name}: kernel differs from the plain version "
+                     f"(max abs err {err})")
+        if plain_batch is None:
+            plain_batch = (lt, stt, s0t, sb)
+        print(f"{name}: L={lanes['t_real'].shape[0]} T={sb[-1]} "
+              f"segments={len(sb) - 1} kinds="
+              f"{len(kinds) if kinds else '-'} switch-"
+              f"template={needs_switch_pass(lanes)}: equal")
     print(f"kernel == plain on every batch (max abs err {max_err}) in "
           f"{time.time() - t0:.1f} s")
 
     # -------------------------------------------------------- 4. timing
     t0 = phase("4. timing (CUDA events, median of 5 after a warm-up)")
     # host clock: where run_sweep's wall goes besides the kernel
-    t1 = time.time()
-    lanes, stacks, st0, sb = pack_batch(cells)
-    t_pack = time.time() - t1
+    (lanes, stacks, st0, sb), pack_s = pack_breakdown(cells)
+    t_pack = pack_s["total"]
     t1 = time.time()
     lt, stt, s0t = as_tensors(lanes, stacks, st0, dev)
     torch.cuda.synchronize()
@@ -1349,7 +1492,29 @@ def main() -> int:
     print(f"host, Table 4 batch: pack_batch {t_pack:.3f} s, upload "
           f"{t_upload:.3f} s, launch checks {t_checks:.3f} s (run_sweep "
           f"wall {wall:.3f} s)")
+    print("pack_batch by function (host clock, s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in pack_s.items()))
     ms = cuda_time_ms(launch, 5)
+    sm_mhz = float(smi("clocks.max.sm").split()[0])
+    spread = lane_spread(launch.cycles.cpu().numpy(), cells, kinds_of,
+                         sm_mhz)
+    round_cyc = tlb_round_cycles(dev)
+    floor_ms, floor_steps = chain_floor(lanes, round_cyc, sm_mhz)
+    print(f"per-lane cycles (clock64, the timed launch): min "
+          f"{spread['min_cycles']}, median {spread['median_cycles']:.0f}, "
+          f"max {spread['max_cycles']} = {spread['min_ms']:.3f} / "
+          f"{spread['median_ms']:.3f} / {spread['max_ms']:.3f} ms at "
+          f"{sm_mhz:.0f} MHz; slowest lane {spread['slowest_lane']}: "
+          f"{spread['slowest_method']} ({spread['slowest_kind']}) on the "
+          f"{spread['slowest_mapping']} mapping, "
+          f"{spread['max_cycles'] / floor_steps:.1f} cycles per access; "
+          f"pad lanes at most {spread['pad_lanes_max_cycles']} cycles")
+    print("mean cycles per access by method kind: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in spread["cycles_per_access"].items()))
+    print(f"chain floor: {floor_steps} steps x {round_cyc:.2f} cycles (one "
+          f"dependent shared-memory load -> compare -> store round, "
+          f"tlb_round_kernel, clock64 over 65,536 rounds on one thread) at "
+          f"{sm_mhz:.0f} MHz = {floor_ms:.4f} ms")
     ops_per_s = int32_rate()
     bound_ms, bound_by, n_bytes, n_ops, t_bytes, t_ops = bound(
         lanes, stacks, st0, sb, sweep.results, ops_per_s)
@@ -1372,13 +1537,20 @@ def main() -> int:
         bound_ms=round(bound_ms, 6), bound_by=bound_by, library_ms=None,
         ms_shape=f"Table 4 batch, L=64 x T={sb[-1]}",
         plain_shape=f"3a batch, L=64 x T={psb[-1]}",
-        ms_on_plain_shape=round(ms_prefix, 4))
+        ms_on_plain_shape=round(ms_prefix, 4),
+        chain_floor_ms=round(floor_ms, 4))
     tlb_out = dict(run_sweep_wall_s=wall,
                    bound=dict(bytes=n_bytes, bytes_ms=t_bytes,
                               int32_ops=n_ops, ops_ms=t_ops,
                               int32_ops_per_s=ops_per_s),
+                   chain_floor=dict(ms=floor_ms, steps=floor_steps,
+                                    round_cycles=round_cyc,
+                                    sm_mhz=sm_mhz),
+                   lane_cycles=spread,
                    host_s=dict(pack_batch=t_pack, upload=t_upload,
-                               launch_checks=t_checks))
+                               launch_checks=t_checks),
+                   pack_batch_s=pack_s,
+                   ptxas=tlb_ptxas)
     del (sweep, cells, worlds, lanes, stacks, st0, lt, stt, s0t, launch,
          plain_batch, pl, ps, p0, prefix_cells, dyn_cells, mt_cells)
     torch.cuda.empty_cache()
@@ -1873,17 +2045,15 @@ def flash_phases(torch, np, dev, params, fa_build, serve_out):
     return kernel, out
 
 
-def small_worlds(tc, SweepCell, np):
-    """A small dynamic world (``build_dynamic_mapping``) under both
-    coherence policies and a small multi-tenant world
-    (``build_multitenant_mapping``) under both context-switch policies,
-    all 11 specs each — the worlds of ``tests/test_backends.py`` and
-    ``tests/test_multitenant.py``."""
-    b, pt = tc.baselines, tc.page_table
-    specs = [b.base_spec(), b.thp_spec(), b.colt_spec(), b.cluster_spec(),
-             b.rmm_spec(), b.anchor_spec(6), b.kaligned_spec([9, 6, 4]),
-             b.kaligned_spec([6, 4], use_predictor=False, name="ka-nopred"),
-             b.subregion_spec(), b.cache_tlb_spec(), b.dead_protect_spec()]
+def _eleven_specs(b):
+    return [b.base_spec(), b.thp_spec(), b.colt_spec(), b.cluster_spec(),
+            b.rmm_spec(), b.anchor_spec(6), b.kaligned_spec([9, 6, 4]),
+            b.kaligned_spec([6, 4], use_predictor=False, name="ka-nopred"),
+            b.subregion_spec(), b.cache_tlb_spec(), b.dead_protect_spec()]
+
+
+def _small_dynamic(tc, np):
+    pt = tc.page_table
     n = 1 << 10
     dyn = pt.build_dynamic_mapping(
         np.arange(n, dtype=np.int64) + 7,
@@ -1891,9 +2061,12 @@ def small_worlds(tc, SweepCell, np):
          (370, [pt.MappingEvent("split", 128, 64, ppn=np.arange(
              200_000, 200_000 + 64 * 3, 3)),
                 pt.MappingEvent("unmap", 768, 32)])], name="hot")
-    dtr = np.random.default_rng(3).integers(0, 512, size=520)
-    dyn_cells = [SweepCell(dataclasses.replace(s, coh_policy=p), dyn, dtr)
-                 for p in ("shootdown", "hw-coherence") for s in specs]
+    return dyn, np.random.default_rng(3).integers(0, 512, size=520)
+
+
+def _small_multitenant(tc, np):
+    pt = tc.page_table
+    n = 1 << 10
     ta = tc.mappings.demand_mapping(n, seed=1)
     tb = pt.make_mapping(np.arange(n, dtype=np.int64) + 3, name="contig")
     tcm = tc.mappings.demand_mapping(n // 2, seed=7, thp=True)
@@ -1907,10 +2080,103 @@ def small_worlds(tc, SweepCell, np):
     for s in range(mt.n_segments):
         mv = np.flatnonzero(mt.tenants[mt.tenant_ids[s]].ppn >= 0)
         parts.append(mv[rng.integers(0, mv.size, bounds[s + 1] - bounds[s])])
-    mtr = np.concatenate(parts).astype(np.int64)
+    return mt, np.concatenate(parts).astype(np.int64)
+
+
+def small_worlds(tc, SweepCell, np):
+    """A small dynamic world (``build_dynamic_mapping``) under both
+    coherence policies and a small multi-tenant world
+    (``build_multitenant_mapping``) under both context-switch policies,
+    all 11 specs each — the worlds of ``tests/test_backends.py`` and
+    ``tests/test_multitenant.py``."""
+    specs = _eleven_specs(tc.baselines)
+    dyn, dtr = _small_dynamic(tc, np)
+    dyn_cells = [SweepCell(dataclasses.replace(s, coh_policy=p), dyn, dtr)
+                 for p in ("shootdown", "hw-coherence") for s in specs]
+    mt, mtr = _small_multitenant(tc, np)
     mt_cells = [SweepCell(dataclasses.replace(s, ctx_policy=p), mt, mtr)
                 for p in ("flush", "tag") for s in specs]
     return dyn_cells, mt_cells
+
+
+def edge_batches(tc, SweepCell, np):
+    """Packed batches ``{name: (lanes, stacks, st0, seg_bounds)}`` (numpy)
+    that pin the TLB kernel's probe-chain and victim rules against the
+    plain version:
+
+    * ``chain`` — K-aligned lanes whose probe order is unusual, on a
+      small-contiguity mapping (hits land on every position, walks are
+      frequent): pred = -1 at the start, pred outside
+      kvals (also with a full kvals row, whose last entry is then never
+      probed), duplicate classes with and without the predictor, kvals
+      with -1 holes, classes probed smallest last (hits at the last
+      position); regular hits come before the chain wherever a regular
+      entry covers; a real lane with t_real = 0 beside them; THP, COLT,
+      RMM and cluster lanes; and two lanes of kinds with no instance of
+      their own (K-aligned with a range table, THP with the predictor),
+      which the kernel runs through its general step;
+    * ``short-lanes`` — the small dynamic world's 520 accesses cut to
+      t_real = 100, 300 or 520 per lane: the short lanes' t_real falls
+      before the shootdowns at t = 150 and 370, whose passes still run on
+      their state before their padded steps; beside them two lanes of a
+      100-access static trace, which end before the other lanes'
+      boundaries;
+    * ``small-l2`` — 4-set L2s of 2, 3 and 8 ways in a batch packed to 8
+      ways (padded ways score BIG), on the multi-tenant world under both
+      switch policies, so flushed ways tie at NEG and full rows evict by
+      LRU every few accesses."""
+    b = tc.baselines
+    rep = dataclasses.replace
+    out = {}
+
+    m = tc.mappings.synthetic_mapping("small", 1 << 12, seed=1)
+    tr = tc.traces.generate_trace("multiscale", 0, 600, seed=2, mapping=m)
+    ka = b.kaligned_spec([9, 6, 4])
+    wide = b.kaligned_spec([12, 10, 8, 4])
+    specs = [rep(ka, name="pred=-1"), rep(ka, name="pred-outside"),
+             rep(ka, name="dup", K=(6, 6, 4, 4)),
+             rep(ka, name="dup-nopred", K=(6, 6, 4), use_predictor=False),
+             rep(ka, name="holes"), rep(ka, name="holes-nopred",
+                                        use_predictor=False),
+             rep(wide, name="last-nopred", use_predictor=False),
+             rep(wide, name="full-row-pred-outside"),
+             rep(b.base_spec(), name="t_real=0"), b.thp_spec(),
+             b.colt_spec(), b.rmm_spec(), b.cluster_spec(),
+             rep(ka, name="ka+rmm", side="rmm"),
+             rep(b.thp_spec(), name="thp+pred", use_predictor=True,
+                 K=(9, 6, 4))]
+    lanes, stacks, st0, sb = _pack(tc, [SweepCell(s, m, tr) for s in specs])
+    lanes["pred0"][0] = -1
+    lanes["pred0"][1] = 5
+    lanes["pred0"][7] = 5
+    for i in (4, 5):
+        lanes["kvals"][i] = [-1, 9, -1, 4]
+    lanes["t_real"][8] = 0
+    out["chain"] = (lanes, stacks, st0, sb)
+
+    dyn, dtr = _small_dynamic(tc, np)
+    cells = [SweepCell(rep(s, coh_policy=p), dyn, dtr)
+             for p in ("shootdown", "hw-coherence")
+             for s in _eleven_specs(b)]
+    cells += [SweepCell(s, m, tr[:100]) for s in (ka, b.base_spec())]
+    lanes, stacks, st0, sb = _pack(tc, cells)
+    lanes["t_real"][:22] = [100, 300, 520] * 7 + [100]
+    out["short-lanes"] = (lanes, stacks, st0, sb)
+
+    mt, mtr = _small_multitenant(tc, np)
+    small = [rep(s, l2_sets=4, l2_ways=w, name=f"{s.name}/4x{w}")
+             for s in (b.base_spec(), b.kaligned_spec([9, 6, 4]),
+                       b.colt_spec(), b.thp_spec()) for w in (2, 3, 8)]
+    out["small-l2"] = _pack(tc, [SweepCell(rep(s, ctx_policy=p), mt, mtr)
+                                 for p in ("flush", "tag") for s in small])
+    return out
+
+
+def _pack(tc, cells):
+    """``pack_batch`` with every lane array copied, so the caller may edit
+    them."""
+    lanes, stacks, st0, sb = tc.sweep.pack_batch(cells)
+    return {k: v.copy() for k, v in lanes.items()}, stacks, st0, sb
 
 
 if __name__ == "__main__":

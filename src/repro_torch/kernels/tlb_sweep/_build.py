@@ -17,8 +17,10 @@ SOURCES = ("tlb_sweep.cu", "tlb_lane.cuh")
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.tlb_sweep_launch.argtypes = [ptr] * 13 + [i32] * 12 + [ptr]
+    lib.tlb_sweep_launch.argtypes = [ptr] * 14 + [i32] * 12 + [ptr]
     lib.tlb_sweep_launch.restype = i32
+    lib.tlb_round_launch.argtypes = [i32, ptr, ptr]
+    lib.tlb_round_launch.restype = i32
     lib.tlb_sweep_smem_bytes.argtypes = [i32] * 5
     lib.tlb_sweep_smem_bytes.restype = i32
     lib.tlb_sweep_error_string.argtypes = [i32]

@@ -4,16 +4,42 @@
 // This is the arithmetic of the JAX package's lane program
 // (src/repro/core/lane_program.py: step_access, shoot_lane, switch_lane)
 // written for ONE lane whose whole state lives in one contiguous int32
-// block (shared memory in the kernel).  It is plain C++ apart from the
-// TLB_HD qualifier, so the host compiler can build it too.
+// block (shared memory in the kernel).  The step is written once, for a
+// warp of 32 "way threads": thread w owns entry w of whatever structure is
+// probed (a way of the L1 set, the 2MB L1 set, the L2 row and the THP huge
+// row; one of the 32 range entries; a cluster way; a way of the
+// cache-backed tier), and the few cross-thread operations sit behind the
+// warp type WP (ballot, min, first_min, sync).  The kernel runs it with
+// WarpDev (tlb_sweep.cu: __ballot_sync, __reduce_min_sync); WarpSerial
+// below runs the same code on one thread that stands for the 32 — the
+// host build (tests/csrc/tlb_lane_host.cpp) and the kernel's read-only
+// padded steps use it.  Apart from the TLB_HD qualifier and the intrinsics
+// of WarpDev, it is plain C++.
 //
 // Bit-exactness rules, each mirrored from the reference and each held by a
-// test against the plain torch version (tests/test_torch_sweep.py on the
-// CPU, tests/test_torch_cuda.py on the card):
+// test against the plain torch version (tests/test_torch_core.py on the
+// CPU through the host build, tests/test_torch_cuda.py on the card):
 //  * first-index semantics: jnp.argmax over an all-False mask is 0, and
-//    that index is only used under a gate (first_true below keeps 0);
+//    that index is only used under a gate: first_set(ballot) of an empty
+//    mask is 0;
 //  * victim choice: jnp.argmin returns the FIRST minimum; padded ways
-//    score BIG, invalid ways NEG (strict '<' keeps the first);
+//    score BIG, invalid ways NEG.  first_min reduces the score first and
+//    then takes the lowest way holding it (a packed (score << 5) | way key
+//    would overflow int32 at BIG and NEG);
+//  * the aligned-probe chain in one round: every position probes the same
+//    L2 row, and an entry of class k can only match the positions whose
+//    class is k, so each way tests its own entry at the first position of
+//    its class and the least (position, way) is the sequential loop's hit
+//    (the chain key in lane_step; positions of class -1 are not live, a
+//    regular hit leaves probes_used 0, duplicate classes count every live
+//    position up to the hit; a prediction is right when the hit is at
+//    position 0, which is pred);
+//  * the probe order is kept as per-class entry masks (ktab) and 16-bit
+//    masks of the kvals row, so no step loops over kvals and no array is
+//    indexed at run time in registers (which would put it in local memory);
+//  * victim scans read only state the step has not written yet, so a
+//    lane kind's instance runs them before it knows whether their fill
+//    happens (FT_ALL runs each where its fill does);
 //  * write order inside a step: the fill is written first, then the LRU
 //    touch goes into the already-filled array (same cell possible);
 //  * coverage samples use the pre-increment t and post-add counters;
@@ -28,9 +54,12 @@
 
 #ifdef __CUDACC__
 #define TLB_HD __host__ __device__ __forceinline__
-#define TLB_LDG(p) __ldg(p)
 #else
 #define TLB_HD inline
+#endif
+#ifdef __CUDA_ARCH__
+#define TLB_LDG(p) __ldg(p)
+#else
 #define TLB_LDG(p) (*(p))
 #endif
 
@@ -114,6 +143,8 @@
 #define MISC_W 3
 
 #define MAXK_CAP 16     // the wrapper refuses wider kvals rows
+#define WARP 32         // way threads: the wrapper refuses wider structures
+#define N_CLASSES 32    // alignment classes 0..31 have a ktab word
 
 // the seg_* planes, stacked [N_SEG_PLANES, L, n_segs] by the wrapper
 #define S_MAP 0
@@ -134,6 +165,66 @@ TLB_HD int imax(int a, int b) { return a > b ? a : b; }
 TLB_HD int imin(int a, int b) { return a < b ? a : b; }
 TLB_HD int iclip(int a, int lo, int hi) { return imin(imax(a, lo), hi); }
 
+TLB_HD int popc(unsigned m) {
+#ifdef __CUDA_ARCH__
+  return __popc(m);
+#else
+  return __builtin_popcount(m);
+#endif
+}
+
+// Index of the lowest set bit; 0 for an empty mask (jnp.argmax of an
+// all-False mask).
+TLB_HD int first_set(unsigned m) {
+#ifdef __CUDA_ARCH__
+  return m ? __ffs((int)m) - 1 : 0;
+#else
+  return m ? __builtin_ctz(m) : 0;
+#endif
+}
+
+// Bits 0..i set (none for i < 0).
+TLB_HD unsigned upto(int i) {
+  return i < 0 ? 0u : i >= 31 ? ~0u : (2u << i) - 1u;
+}
+
+// The low bits of vpn cleared below alignment class k (k in 0..30).
+TLB_HD int align_down(int vpn, int k) { return vpn & ~wsub(wshl(1, k), 1); }
+
+// The 32 way threads run one after another on one thread: the host build,
+// and the kernel's padded steps (each thread of the warp one padded step).
+struct WarpSerial {
+  // bit w set for every w < n where f(w) holds
+  template <class F>
+  TLB_HD unsigned ballot(int n, F f) const {
+    unsigned m = 0;
+    for (int w = 0; w < n; ++w)
+      if (f(w)) m |= 1u << w;
+    return m;
+  }
+  // least f(w) over w < n (INT_MAX when n == 0)
+  template <class F>
+  TLB_HD int min(int n, F f) const {
+    int m = 0x7fffffff;
+    for (int w = 0; w < n; ++w) m = imin(m, f(w));
+    return m;
+  }
+  // first w < n holding the least f(w) (jnp.argmin); 0 when n == 0
+  template <class F>
+  TLB_HD int first_min(int n, F f) const {
+    int best = 0, best_score = 0;
+    for (int w = 0; w < n; ++w) {
+      const int v = f(w);
+      if (w == 0 || v < best_score) {
+        best = w;
+        best_score = v;
+      }
+    }
+    return best;
+  }
+  TLB_HD void sync() const {}
+};
+
 // Per-lane geometry; every structure is one int32 block, fields last.
 struct LaneGeom {
   int sets, ways, ctlb_sets, ctlb_ways, dp_n;
@@ -143,11 +234,12 @@ TLB_HD int lane_state_words(const LaneGeom& g) {
   return L1_SETS * L1_WAYS * L1_W + L1H_SETS * L1H_WAYS * L1_W +
          g.sets * g.ways * L2_W + RMM_ENTRIES * RMM_W +
          CLUS_SETS * CLUS_WAYS * CLUS_W + g.ctlb_sets * g.ctlb_ways * CTLB_W +
-         g.dp_n + MISC_W + N_COUNTERS + N_COV_SAMPLES;
+         g.dp_n + MISC_W + N_COUNTERS + N_COV_SAMPLES + N_CLASSES;
 }
 
 struct LaneState {
   int *l1, *l1h, *l2, *rmm, *clus, *ctlb, *dp, *misc, *cnt, *cov;
+  int* ktab;  // ktab[c]: mask of the kvals entries equal to class c
 };
 
 // Carve one lane's state out of a block of lane_state_words(g) ints.
@@ -163,12 +255,14 @@ TLB_HD LaneState carve_state(int* base, const LaneGeom& g) {
   s.misc = s.dp + g.dp_n;
   s.cnt = s.misc + MISC_W;
   s.cov = s.cnt + N_COUNTERS;
+  s.ktab = s.cov + N_COV_SAMPLES;
   return s;
 }
 
 // Word i (0 <= i < lane_state_words) of the fresh state, as the reference
 // initialises it: tag/start planes -1, L2 kcls INVALID and ppn -1, the
-// rest 0 (t, counters and samples 0; pred and asid are set by the caller).
+// rest 0 (t, counters and samples 0; pred and asid are set by the caller,
+// ktab by build_ktab).
 TLB_HD int init_word(int i, const LaneGeom& g) {
   int n = L1_SETS * L1_WAYS * L1_W;
   if (i < n) return (i % L1_W) == 0 ? -1 : 0;
@@ -193,275 +287,444 @@ TLB_HD int init_word(int i, const LaneGeom& g) {
   return 0;
 }
 
-// Per-lane scalars, read once from the params row and the kvals row.
+// ktab[c] for class c: the mask of kvals entries equal to c.  The kernel
+// gives each class to one thread; the host calls it for every c.
+TLB_HD int ktab_word(const int* kv, int maxk, int c) {
+  unsigned m = 0;
+  for (int i = 0; i < maxk; ++i)
+    if (TLB_LDG(kv + i) == c) m |= 1u << i;
+  return (int)m;
+}
+
+// Per-lane scalars, read once from the params row and the kvals row.  The
+// kvals row itself is kept as masks (entries 0..maxk-1, bit i = entry i)
+// beside ktab in the state.
 struct LaneParams {
   int is_colt, is_thp, is_subr, is_generic, has_rmm, has_cluster, has_ctlb,
       use_dead, coh_hw, use_pred, set_mask, n_ways, k_hat, miss_chain,
       t_real, sample_every, maxk;
-  int kv[MAXK_CAP];
+  unsigned live;      // entries >= 0: live positions
+  unsigned neg;       // entries == -1: the entries equal to pred == -1
 };
 
 TLB_HD LaneParams load_params(const int* p, const int* kv, int maxk) {
   LaneParams q;
-  q.is_colt = p[F_IS_COLT] == 1;
-  q.is_thp = p[F_IS_THP] == 1;
-  q.is_subr = p[F_IS_SUBR] == 1;
+  q.is_colt = TLB_LDG(p + F_IS_COLT) == 1;
+  q.is_thp = TLB_LDG(p + F_IS_THP) == 1;
+  q.is_subr = TLB_LDG(p + F_IS_SUBR) == 1;
   q.is_generic = !q.is_colt && !q.is_thp && !q.is_subr;
-  q.has_rmm = p[F_HAS_RMM] == 1;
-  q.has_cluster = p[F_HAS_CLUSTER] == 1;
-  q.has_ctlb = p[F_HAS_CTLB] == 1;
-  q.use_dead = p[F_USE_DEAD] == 1;
-  q.coh_hw = p[F_COH_HW] == 1;
-  q.use_pred = p[F_USE_PRED] == 1;
-  q.set_mask = p[F_SET_MASK];
-  q.n_ways = p[F_N_WAYS];
-  q.k_hat = p[F_K_HAT];
-  q.miss_chain = p[F_MISS_CHAIN];
-  q.t_real = p[F_T_REAL];
-  q.sample_every = p[F_SAMPLE_EVERY];
+  q.has_rmm = TLB_LDG(p + F_HAS_RMM) == 1;
+  q.has_cluster = TLB_LDG(p + F_HAS_CLUSTER) == 1;
+  q.has_ctlb = TLB_LDG(p + F_HAS_CTLB) == 1;
+  q.use_dead = TLB_LDG(p + F_USE_DEAD) == 1;
+  q.coh_hw = TLB_LDG(p + F_COH_HW) == 1;
+  q.use_pred = TLB_LDG(p + F_USE_PRED) == 1;
+  q.set_mask = TLB_LDG(p + F_SET_MASK);
+  q.n_ways = TLB_LDG(p + F_N_WAYS);
+  q.k_hat = TLB_LDG(p + F_K_HAT);
+  q.miss_chain = TLB_LDG(p + F_MISS_CHAIN);
+  q.t_real = TLB_LDG(p + F_T_REAL);
+  q.sample_every = TLB_LDG(p + F_SAMPLE_EVERY);
   q.maxk = maxk;
-  for (int i = 0; i < MAXK_CAP; ++i) q.kv[i] = i < maxk ? kv[i] : -1;
+  q.live = 0;
+  q.neg = 0;
+  for (int i = 0; i < maxk; ++i) {
+    const int k = TLB_LDG(kv + i);
+    q.live |= (k >= 0 ? 1u : 0u) << i;
+    q.neg |= (k == -1 ? 1u : 0u) << i;
+  }
   return q;
 }
 
-// LRU victim over `n` ways of a packed row: the first way with the least
-// score, score = lru of a valid way, NEG for an invalid one (jnp.argmin).
-// `valid_field`/`valid_kind` say how validity is read: tag >= 0, a
-// non-zero word, a positive length, or kcls != INVALID.
-enum ValidKind { V_TAG_NONNEG, V_NONZERO, V_POSITIVE };
+// The scalars a lane's steps carry from one to the next, in registers in
+// the kernel; lane_regs_store/lane_regs_load move them to and from the
+// state around the segment-entry passes and at the end.  `smp` counts the
+// steps left before the next coverage sample (t % sample_every ==
+// sample_every - 1), so no step divides.
+struct LaneRegs {
+  int t, pred, cur, smp;
+  int cnt[N_COUNTERS];
+};
 
-TLB_HD int lru_victim(const int* row, int n, int width, int valid_field,
-                      ValidKind vk, int lru_field) {
-  int best = 0, best_score = 0;
-  for (int w = 0; w < n; ++w) {
-    int v = row[w * width + valid_field];
-    bool valid = vk == V_TAG_NONNEG ? v >= 0 : vk == V_NONZERO ? v != 0 : v > 0;
-    int score = valid ? row[w * width + lru_field] : SCORE_NEG;
-    if (w == 0 || score < best_score) {
-      best = w;
-      best_score = score;
-    }
-  }
-  return best;
+TLB_HD LaneRegs lane_regs_load(const LaneState& s, const LaneParams& q) {
+  LaneRegs r;
+  r.t = s.misc[M_T];
+  r.pred = s.misc[M_PRED];
+  r.cur = s.misc[M_ASID];
+  r.smp = q.sample_every - 1 - r.t % q.sample_every;
+  for (int i = 0; i < N_COUNTERS; ++i) r.cnt[i] = s.cnt[i];
+  return r;
 }
 
-// One access of one lane (step_access).  `act` is false on padded steps:
-// nothing is written except the returned ppn.  `mrec`/`frec`/`bm` are the
-// live segment's map record, fill record and cluster word at `vpn`.
-TLB_HD int step_access(const LaneParams& q, const LaneGeom& g,
-                       const LaneState& s, int vpn, const int* mrec,
-                       const int* frec, int bm, bool act) {
-  const int t = s.misc[M_T];
-  const int pred = s.misc[M_PRED];
-  const int cur = s.misc[M_ASID];
-  const int ppn_true = mrec[0], rs_v = mrec[1], rl_v = mrec[2],
-            rmm_fill_ppn = mrec[3];
-  const int fill_tag = frec[0], fill_k = frec[1], fill_contig = frec[2],
-            fill_ppn = frec[3], fill_aux = frec[4];
+TLB_HD void lane_regs_store(const LaneRegs& r, const LaneState& s) {
+  s.misc[M_T] = r.t;
+  s.misc[M_PRED] = r.pred;
+  s.misc[M_ASID] = r.cur;
+  for (int i = 0; i < N_COUNTERS; ++i) s.cnt[i] = r.cnt[i];
+}
+
+// One access's inputs: the vpn and the live segment's map record, fill
+// record and cluster word at it.
+struct Rec {
+  int vpn;
+  int m[MAP_W];
+  int f[FILL_W];
+  int bm;
+};
+
+// ---- lane kinds, known at compile time ------------------------------------
+// A lane's flags decide which structures its step probes.  The step is
+// compiled once per kind of lane the roster has (FEAT, a mask of FT_*
+// bits), so a lane runs only its own structures' code; FT_ALL reads the
+// flags at run time and takes any other combination.  The kernel and the
+// host build both pick a lane's instance by lane_feat and TLB_FEAT_CASES.
+#define FT_COLT 1
+#define FT_THP 2
+#define FT_SUBR 4
+#define FT_CHAIN 8      // the aligned-probe chain can hit (live classes)
+#define FT_PRED 16
+#define FT_RMM 32
+#define FT_CLUS 64
+#define FT_CTLB 128
+#define FT_DEAD 256
+#define FT_ALL 511
+#define TLB_FEAT_CASES(X)                                                   \
+  X(0) X(FT_COLT) X(FT_THP) X(FT_SUBR) X(FT_CHAIN) X(FT_CHAIN | FT_PRED)    \
+  X(FT_RMM) X(FT_CLUS) X(FT_CTLB) X(FT_DEAD)
+
+struct Kind {
+  bool colt, thp, subr, generic, chain, pred, rmm, clus, ctlb, dead;
+};
+
+// Is `feat` one of the kinds with an instance of its own?
+TLB_HD bool feat_compiled(int feat) {
+  switch (feat) {
+#define TLB_CASE(F) case F:
+    TLB_FEAT_CASES(TLB_CASE)
+#undef TLB_CASE
+    return true;
+    default:
+      return false;
+  }
+}
+
+TLB_HD Kind kind_of(const LaneParams& q) {
+  Kind k;
+  k.colt = q.is_colt;
+  k.thp = q.is_thp;
+  k.subr = q.is_subr;
+  k.generic = q.is_generic;
+  // a chain with no live position and no predictor never hits or counts
+  k.chain = (q.is_generic || q.use_pred) && (q.use_pred || q.live != 0);
+  k.pred = q.use_pred;
+  k.rmm = q.has_rmm;
+  k.clus = q.has_cluster;
+  k.ctlb = q.has_ctlb;
+  k.dead = q.use_dead;
+  return k;
+}
+
+TLB_HD int lane_feat(const LaneParams& q) {
+  const Kind k = kind_of(q);
+  return (k.colt ? FT_COLT : 0) | (k.thp ? FT_THP : 0) |
+         (k.subr ? FT_SUBR : 0) | (k.chain ? FT_CHAIN : 0) |
+         (k.pred ? FT_PRED : 0) | (k.rmm ? FT_RMM : 0) |
+         (k.clus ? FT_CLUS : 0) | (k.ctlb ? FT_CTLB : 0) |
+         (k.dead ? FT_DEAD : 0);
+}
+
+// The lane's kind under FEAT: constants the compiler folds, or (FT_ALL)
+// the flags.  FEAT is lane_feat(q) or FT_ALL, so both agree with q.
+template <int FEAT>
+TLB_HD Kind kind_at(const LaneParams& q) {
+  if (FEAT == FT_ALL) return kind_of(q);
+  Kind k;
+  k.colt = (FEAT & FT_COLT) != 0;
+  k.thp = (FEAT & FT_THP) != 0;
+  k.subr = (FEAT & FT_SUBR) != 0;
+  k.generic = (FEAT & (FT_COLT | FT_THP | FT_SUBR)) == 0;
+  k.chain = (FEAT & FT_CHAIN) != 0;
+  k.pred = (FEAT & FT_PRED) != 0;
+  k.rmm = (FEAT & FT_RMM) != 0;
+  k.clus = (FEAT & FT_CLUS) != 0;
+  k.ctlb = (FEAT & FT_CTLB) != 0;
+  k.dead = (FEAT & FT_DEAD) != 0;
+  return k;
+}
+
+// One access of one lane (step_access).  ACT is false on padded steps:
+// then nothing is read but the probes and nothing is written; only the
+// returned ppn counts.  The probes and victim scans of every structure are
+// independent of one another, so the warp issues them together; the writes
+// follow in the reference's order.
+template <bool ACT, int FEAT, class WP>
+TLB_HD int lane_step(const WP& wp, const LaneParams& q, const LaneGeom& g,
+                     const LaneState& s, LaneRegs& r, const Rec& rec) {
+  const Kind k = kind_at<FEAT>(q);
+  const int vpn = rec.vpn;
+  const int t = r.t, pred = r.pred, cur = r.cur;
+  const int ppn_true = rec.m[0], rs_v = rec.m[1], rl_v = rec.m[2],
+            rmm_fill_ppn = rec.m[3];
+  const int fill_tag = rec.f[0], fill_k = rec.f[1], fill_contig = rec.f[2],
+            fill_ppn = rec.f[3], fill_aux = rec.f[4];
+  const int bm = rec.bm;
   const int W = g.ways;
 
   // ---------------- L1 (regular + gated 2MB array) ----------------
-  const int s1 = vpn & (L1_SETS - 1);
-  int* l1row = s.l1 + s1 * L1_WAYS * L1_W;
-  bool l1_hit = false;
-  int l1_way = 0;                       // argmax of an all-False mask is 0
-  for (int w = 0; w < L1_WAYS; ++w) {
-    if (!l1_hit && l1row[w * L1_W] == vpn && l1row[w * L1_W + 3] == cur) {
-      l1_hit = true;
-      l1_way = w;
-    }
-  }
+  int* l1row = s.l1 + (vpn & (L1_SETS - 1)) * L1_WAYS * L1_W;
+  const unsigned l1m = wp.ballot(L1_WAYS, [&](int w) {
+    const int tag = l1row[w * L1_W], asid = l1row[w * L1_W + 3];
+    return (tag == vpn) & (asid == cur);
+  });
+  const bool l1_hit = l1m != 0;
+  const int l1_way = first_set(l1m);
   const int hv = vpn >> 9;              // arithmetic, as jnp
-  const int s1h = hv & (L1H_SETS - 1);
-  int* l1hrow = s.l1h + s1h * L1H_WAYS * L1_W;
-  bool h_any = false;
-  int l1h_way = 0;
-  for (int w = 0; q.is_thp && w < L1H_WAYS; ++w) {   // read on THP lanes only
-    if (!h_any && l1hrow[w * L1_W] == hv && l1hrow[w * L1_W + 3] == cur) {
-      h_any = true;
-      l1h_way = w;
-    }
-  }
-  const bool l1h_hit = q.is_thp && h_any;
-  const bool l1_served = l1_hit || l1h_hit;
-  const int l1_out_ppn = l1_hit ? l1row[l1_way * L1_W + 1]
-                                : wadd(l1hrow[l1h_way * L1_W + 1], vpn & 511);
+  int* l1hrow = s.l1h + (hv & (L1H_SETS - 1)) * L1H_WAYS * L1_W;
+  unsigned l1hm = 0;                    // read on THP lanes only
+  if (k.thp)
+    l1hm = wp.ballot(L1H_WAYS, [&](int w) {
+      const int tag = l1hrow[w * L1_W], asid = l1hrow[w * L1_W + 3];
+      return (tag == hv) & (asid == cur);
+    });
+  const bool h_any = l1hm != 0;
+  const int l1h_way = first_set(l1hm);
+  const bool l1_served = l1_hit || (k.thp && h_any);
 
-  // ---------------- L2 probes (all kinds, selected) ---------------
+  // ---------------- L2 probes (each kind's on its lanes) ----------
   // Each kind's probe runs only on lanes of that kind: its result is read
   // only under the same flag, so skipping it elsewhere changes nothing.
   const int s2 = (vpn >> q.k_hat) & q.set_mask;
   const int* row = s.l2 + s2 * W * L2_W;
   const int s2h = hv & q.set_mask;
   const int* row_h = s.l2 + s2h * W * L2_W;
-  const int sub_base = vpn & ~(SUBR_PAGES - 1);
   const int sub_off = vpn & (SUBR_PAGES - 1);
-  bool colt_hit = false, reg_any = false, huge_hit = false, subr_hit = false;
-  int colt_way = 0, rw = 0, hw = 0, subr_way = 0;
-  for (int w = 0; w < W; ++w) {
-    const int* e = row + w * L2_W;
-    const int tag = e[L2_TAG], kc = e[L2_KCLS], cg = e[L2_CONTIG];
-    const bool valid = kc != K_INVALID && e[L2_ASID] == cur;
-    const int diff = wsub(vpn, tag);
-    if (q.is_colt && !colt_hit && valid && diff >= 0 && diff < cg) {
-      colt_hit = true;
-      colt_way = w;
-    }
-    if (!reg_any && kc == K_REGULAR && tag == vpn && valid) {
-      reg_any = true;
-      rw = w;
-    }
-    if (q.is_subr && !subr_hit && valid && kc == K_SUBR && tag == sub_base &&
-        ((e[L2_AUX] >> sub_off) & 1) == 1) {
-      subr_hit = true;
-      subr_way = w;
-    }
-    if (q.is_thp && !huge_hit) {
-      const int* eh = row_h + w * L2_W;
-      if (eh[L2_KCLS] == K_HUGE && eh[L2_TAG] == hv && eh[L2_ASID] == cur) {
-        huge_hit = true;
-        hw = w;
-      }
-    }
-  }
-  const int colt_cg = row[colt_way * L2_W + L2_CONTIG];
-  const bool colt_reg = colt_hit && colt_cg == 1;
-  const bool colt_coal = colt_hit && colt_cg > 1;
-  const int colt_ppn = wadd(row[colt_way * L2_W + L2_PPN],
-                            wsub(vpn, row[colt_way * L2_W + L2_TAG]));
-  const bool thp_reg = reg_any || huge_hit;
-  const int thp_ppn = reg_any ? row[rw * L2_W + L2_PPN]
-                              : wadd(row_h[hw * L2_W + L2_PPN],
-                                     wsub(vpn, wshl(hv, 9)));
-  const int thp_touch_set = reg_any ? s2 : s2h;
-  const int thp_touch_way = reg_any ? rw : hw;
-  const int subr_cg = row[subr_way * L2_W + L2_CONTIG];
-  const bool subr_reg = subr_hit && subr_cg == 1;
-  const bool subr_coal = subr_hit && subr_cg > 1;
-  const int subr_ppn = wadd(row[subr_way * L2_W + L2_PPN], sub_off);
+  unsigned regm = 0, coltm = 0, subrm = 0, hugem = 0;
+  if (k.generic || k.thp || k.chain)
+    regm = wp.ballot(W, [&](int w) {
+      const int* e = row + w * L2_W;
+      const int kc = e[L2_KCLS], tag = e[L2_TAG], asid = e[L2_ASID];
+      return (kc == K_REGULAR) & (tag == vpn) & (asid == cur);
+    });
+  if (k.colt)
+    coltm = wp.ballot(W, [&](int w) {
+      const int* e = row + w * L2_W;
+      const int kc = e[L2_KCLS], tag = e[L2_TAG], asid = e[L2_ASID],
+                cg = e[L2_CONTIG];
+      const int diff = wsub(vpn, tag);
+      return (kc != K_INVALID) & (asid == cur) & (diff >= 0) & (diff < cg);
+    });
+  if (k.subr)
+    subrm = wp.ballot(W, [&](int w) {
+      const int* e = row + w * L2_W;
+      const int kc = e[L2_KCLS], tag = e[L2_TAG], asid = e[L2_ASID],
+                aux = e[L2_AUX];
+      return (kc == K_SUBR) & (asid == cur) &
+             (tag == (vpn & ~(SUBR_PAGES - 1))) & (((aux >> sub_off) & 1) == 1);
+    });
+  if (k.thp)
+    hugem = wp.ballot(W, [&](int w) {
+      const int* e = row_h + w * L2_W;
+      const int kc = e[L2_KCLS], tag = e[L2_TAG], asid = e[L2_ASID];
+      return (kc == K_HUGE) & (tag == hv) & (asid == cur);
+    });
 
-  // generic branch: regular probe + padded aligned-probe chain, in the
+  // generic branch: regular probe + the aligned-probe chain, in the
   // predictor's order [pred, remaining K in packed order] or as packed.
   // Its results are read on generic lanes and through the predictor only;
-  // once a probe hit (or the regular probe did) no later slot is live.
-  const bool gen_reg = reg_any;
-  int probes_used = 0, hit_k = -1, coal_ppn = -1, coal_way = 0;
+  // a regular hit stops it before its first probe.
+  const bool gen_reg = regm != 0;
+  const int rw = first_set(regm);
   bool gen_coal = false;
-  int first_probe_k = -1;
-  const int chain = (q.is_generic || q.use_pred) ? q.maxk : 0;
-  for (int pos = 0; pos < chain; ++pos) {
-    if (pos > 0 && (gen_reg || gen_coal)) break;
-    int k_val;
-    if (pos == 0) {
-      k_val = q.use_pred ? pred : q.kv[0];
-    } else if (q.use_pred) {
-      // the pos-th kvals entry (1-based) that differs from pred, else -1
-      k_val = -1;
-      int cnt = 0;
-      for (int i = 0; i < q.maxk; ++i) {
-        if (q.kv[i] != pred && ++cnt == pos) {
-          k_val = q.kv[i];
-          break;
-        }
-      }
-    } else {
-      k_val = q.kv[pos];
-    }
-    if (pos == 0) first_probe_k = k_val;
-    const int sh = imax(k_val, 0);
-    const int vk = k_val >= 0 ? (vpn & ~(wshl(1, sh) - 1)) : -10;
-    const bool live = !gen_reg && !gen_coal && k_val >= 0;
-    bool m_any = false;
-    int mw = 0;
-    for (int w = 0; live && w < W; ++w) {
+  int coal_way = 0, hit_k = -1, probes_used = 0;
+  if (k.chain && !gen_reg) {
+    // entries equal to pred (a class outside 0..31 equals no entry); on
+    // predicting lanes positions 1.. are the entries other than pred,
+    // in order, cut to maxk - 1 of them
+    const unsigned eqp = !k.pred ? 0u
+                         : pred == -1 ? q.neg
+                         : (unsigned)pred < N_CLASSES
+                             ? (unsigned)s.ktab[pred] : 0u;
+    const unsigned ne_live = upto(q.maxk - 1) & ~eqp & q.live;
+    const int p0 = pred >= 0 ? 1 : 0;
+    // each way's hit as one key: (position, way) orders the keys as the
+    // sequential chain meets them; the live positions probed up to the
+    // hit and the class ride in the low bits
+    const int NO_KEY = 0x7fffffff;
+    const int key = wp.min(W, [&](int w) {
+      // every field loaded, every test computed: no load waits on a test
       const int* e = row + w * L2_W;
-      if (!m_any && e[L2_KCLS] == k_val && e[L2_TAG] == vk &&
-          e[L2_KCLS] != K_INVALID && e[L2_ASID] == cur &&
-          e[L2_CONTIG] > wsub(vpn, vk)) {
-        m_any = true;
-        mw = w;
+      const int kc = e[L2_KCLS], tag = e[L2_TAG], asid = e[L2_ASID],
+                cg = e[L2_CONTIG];
+      const int c = kc & (N_CLASSES - 1);
+      const unsigned m = (unsigned)s.ktab[c];  // entries of class c
+      const int vk = align_down(vpn, c);
+      // a regular or invalid entry (kc < 0) is no class
+      const bool match = ((unsigned)kc < N_CLASSES) & (tag == vk) &
+                         (asid == cur) & (cg > wsub(vpn, vk));
+      const int i = first_set(m);
+      int pos, probes;
+      if (!k.pred) {
+        pos = m ? i : -1;
+        probes = popc(q.live & upto(i));
+      } else {
+        const int after = m ? 1 + i - popc(eqp & (upto(i) >> 1)) : -1;
+        pos = c == pred ? 0 : after < q.maxk ? after : -1;
+        probes = c == pred ? 1 : p0 + popc(ne_live & upto(i));
       }
+      return match & (pos >= 0) ? pos << 15 | w << 10 | probes << 5 | c
+                                : NO_KEY;
+    });
+    gen_coal = key != NO_KEY;
+    if (gen_coal) {
+      coal_way = (key >> 10) & (WARP - 1);
+      hit_k = key & (N_CLASSES - 1);
+      probes_used = (key >> 5) & 31;
+    } else {
+      // every live position probed
+      probes_used = !k.pred ? popc(q.live)
+                    : p0 + popc(ne_live & (eqp == 0 ? upto(q.maxk - 2)
+                                                     : ~0u));
     }
-    const bool m_hit = m_any && live;
-    probes_used += live ? 1 : 0;
-    if (m_hit) {
-      coal_ppn = wadd(row[mw * L2_W + L2_PPN], wsub(vpn, vk));
-      coal_way = mw;
-      hit_k = k_val;
-    }
-    gen_coal = gen_coal || m_hit;
   }
-
-  // per-lane branch selection
-  bool reg_hit, coal_hit;
-  int l2_ppn_val, touch_set, tw;
-  if (q.is_colt) {
-    reg_hit = colt_reg; coal_hit = colt_coal; l2_ppn_val = colt_ppn;
-    touch_set = s2; tw = colt_way;
-  } else if (q.is_thp) {
-    reg_hit = thp_reg; coal_hit = false; l2_ppn_val = thp_ppn;
-    touch_set = thp_touch_set; tw = thp_touch_way;
-  } else if (q.is_subr) {
-    reg_hit = subr_reg; coal_hit = subr_coal; l2_ppn_val = subr_ppn;
-    touch_set = s2; tw = subr_way;
-  } else {
-    reg_hit = gen_reg; coal_hit = gen_coal;
-    l2_ppn_val = gen_reg ? row[rw * L2_W + L2_PPN] : coal_ppn;
-    touch_set = s2; tw = gen_reg ? rw : coal_way;
-  }
-  const bool l2_hit = reg_hit || coal_hit;
-  const int pred_ok = (q.use_pred && gen_coal && hit_k == first_probe_k) ? 1 : 0;
-  if (!q.is_generic) probes_used = 0;
 
   // ---------------- side structures (gated) -----------------------
-  bool rng_any = false;
-  int sw = 0;
-  for (int e = 0; q.has_rmm && e < RMM_ENTRIES; ++e) {
-    const int* r = s.rmm + e * RMM_W;
-    const int d = wsub(vpn, r[0]);
-    if (!rng_any && d >= 0 && d < r[1] && r[4] == cur) {
-      rng_any = true;
-      sw = e;
-    }
-  }
-  const bool rmm_hit = q.has_rmm && rng_any;
-  const int rmm_ppn_val = wadd(s.rmm[sw * RMM_W + 2],
-                               wsub(vpn, s.rmm[sw * RMM_W]));
-
+  unsigned rngm = 0, ctagm = 0, cbitm = 0, ctm = 0;
+  if (k.rmm)
+    rngm = wp.ballot(RMM_ENTRIES, [&](int e) {
+      const int* x = s.rmm + e * RMM_W;
+      const int start = x[0], len = x[1], asid = x[4];
+      const int d = wsub(vpn, start);
+      return (d >= 0) & (d < len) & (asid == cur);
+    });
   const int cwd = vpn >> 3;
-  const int sc = cwd & (CLUS_SETS - 1);
-  int* crow = s.clus + sc * CLUS_WAYS * CLUS_W;
-  bool c_any = false, hc_any = false;
-  int hit_cway = 0;
-  for (int w = 0; q.has_cluster && w < CLUS_WAYS; ++w) {
-    const int* c = crow + w * CLUS_W;
-    const bool tag_ok = c[0] == cwd && c[3] == cur;
-    if (tag_ok && ((c[1] >> (vpn & 7)) & 1) == 1) c_any = true;
-    if (!hc_any && tag_ok) {
-      hc_any = true;
-      hit_cway = w;
-    }
+  int* crow = s.clus + (cwd & (CLUS_SETS - 1)) * CLUS_WAYS * CLUS_W;
+  if (k.clus) {
+    ctagm = wp.ballot(CLUS_WAYS, [&](int w) {
+      const int tag = crow[w * CLUS_W], asid = crow[w * CLUS_W + 3];
+      return (tag == cwd) & (asid == cur);
+    });
+    cbitm = wp.ballot(CLUS_WAYS, [&](int w) {
+      return ((crow[w * CLUS_W + 1] >> (vpn & 7)) & 1) == 1;
+    });
   }
-  const bool cl_hit = q.has_cluster && c_any;
+  int* trow = s.ctlb + (vpn & (g.ctlb_sets - 1)) * g.ctlb_ways * CTLB_W;
+  if (k.ctlb)
+    ctm = wp.ballot(g.ctlb_ways, [&](int w) {
+      const int tag = trow[w * CTLB_W], asid = trow[w * CTLB_W + 3];
+      return (tag == vpn) & (asid == cur);
+    });
 
-  // cache-backed tier: probed only past an L1+L2 miss
-  const int sct = vpn & (g.ctlb_sets - 1);
-  int* trow = s.ctlb + sct * g.ctlb_ways * CTLB_W;
-  bool t_any = false;
-  int ctlb_way = 0;
-  for (int w = 0; q.has_ctlb && w < g.ctlb_ways; ++w) {
-    if (!t_any && trow[w * CTLB_W] == vpn && trow[w * CTLB_W + 3] == cur) {
-      t_any = true;
-      ctlb_way = w;
-    }
+  // ---------------- victims (see the header) ----------------------
+  // A scan reads only state this step has not written yet.  The instance
+  // of a lane kind runs its scans here, beside the probes, before the step
+  // knows whether their fills happen; FT_ALL, which carries every
+  // structure, runs each where its fill does, to keep to the registers.
+  const bool early = FEAT != FT_ALL;
+  const bool served_huge = k.thp && fill_k == K_HUGE;
+  int* frow = s.l2 + (served_huge ? s2h : s2) * W * L2_W;
+  auto l2_victim_of = [&]() {
+    return wp.first_min(W, [&](int w) {
+      const int kc = frow[w * L2_W + L2_KCLS], lru = frow[w * L2_W + L2_LRU];
+      return w < q.n_ways ? (kc != K_INVALID ? lru : SCORE_NEG) : SCORE_BIG;
+    });
+  };
+  auto rmm_victim_of = [&]() {
+    return wp.first_min(RMM_ENTRIES, [&](int e) {
+      const int len = s.rmm[e * RMM_W + 1], lru = s.rmm[e * RMM_W + 3];
+      return len > 0 ? lru : SCORE_NEG;
+    });
+  };
+  auto clus_victim_of = [&]() {
+    return wp.first_min(CLUS_WAYS, [&](int w) {
+      const int word = crow[w * CLUS_W + 1], lru = crow[w * CLUS_W + 2];
+      return word != 0 ? lru : SCORE_NEG;
+    });
+  };
+  auto l1h_victim_of = [&]() {
+    return wp.first_min(L1H_WAYS, [&](int w) {
+      const int tag = l1hrow[w * L1_W], lru = l1hrow[w * L1_W + 2];
+      return tag >= 0 ? lru : SCORE_NEG;
+    });
+  };
+  auto l1_victim_of = [&]() {
+    return wp.first_min(L1_WAYS, [&](int w) {
+      const int tag = l1row[w * L1_W], lru = l1row[w * L1_W + 2];
+      return tag >= 0 ? lru : SCORE_NEG;
+    });
+  };
+  int l2_victim = 0, rmm_victim = 0, clus_victim = 0, l1h_victim = 0,
+      l1_victim = 0;
+  if (ACT && early) {
+    l2_victim = l2_victim_of();
+    if (k.rmm) rmm_victim = rmm_victim_of();
+    if (k.clus) clus_victim = clus_victim_of();
+    if (k.thp) l1h_victim = l1h_victim_of();
+    l1_victim = l1_victim_of();
   }
-  const bool ctlb_hit = q.has_ctlb && !l1_served && !l2_hit && t_any;
+
+  // ---------------- hits and their translations -------------------
+  const int l1_out_ppn = l1_hit ? l1row[l1_way * L1_W + 1]
+                                : wadd(l1hrow[l1h_way * L1_W + 1], vpn & 511);
+  bool reg_hit, coal_hit;
+  int l2_ppn_val, touch_set, tw;
+  if (k.colt) {
+    const int cw = first_set(coltm);
+    const int cg = row[cw * L2_W + L2_CONTIG];
+    reg_hit = coltm != 0 && cg == 1;
+    coal_hit = coltm != 0 && cg > 1;
+    l2_ppn_val = wadd(row[cw * L2_W + L2_PPN],
+                      wsub(vpn, row[cw * L2_W + L2_TAG]));
+    touch_set = s2;
+    tw = cw;
+  } else if (k.thp) {
+    const int hw = first_set(hugem);
+    reg_hit = gen_reg || hugem != 0;
+    coal_hit = false;
+    l2_ppn_val = gen_reg ? row[rw * L2_W + L2_PPN]
+                         : wadd(row_h[hw * L2_W + L2_PPN],
+                                wsub(vpn, wshl(hv, 9)));
+    touch_set = gen_reg ? s2 : s2h;
+    tw = gen_reg ? rw : hw;
+  } else if (k.subr) {
+    const int sw = first_set(subrm);
+    const int cg = row[sw * L2_W + L2_CONTIG];
+    reg_hit = subrm != 0 && cg == 1;
+    coal_hit = subrm != 0 && cg > 1;
+    l2_ppn_val = wadd(row[sw * L2_W + L2_PPN], sub_off);
+    touch_set = s2;
+    tw = sw;
+  } else {
+    reg_hit = gen_reg;
+    coal_hit = gen_coal;
+    l2_ppn_val = gen_reg ? row[rw * L2_W + L2_PPN]
+                 : wadd(row[coal_way * L2_W + L2_PPN],
+                        wsub(vpn, align_down(vpn, imax(hit_k, 0))));
+    touch_set = s2;
+    tw = gen_reg ? rw : coal_way;
+  }
+  const bool l2_hit = reg_hit || coal_hit;
+  // the predictor was right when the chain hit at its first position
+  const int pred_ok = (k.pred && gen_coal && hit_k == pred) ? 1 : 0;
+  if (!k.generic) probes_used = 0;
+
+  const int sw_r = first_set(rngm);
+  const bool rmm_hit = k.rmm && rngm != 0;
+  const int rmm_ppn_val = wadd(s.rmm[sw_r * RMM_W + 2],
+                               wsub(vpn, s.rmm[sw_r * RMM_W]));
+  const bool cl_hit = k.clus && (ctagm & cbitm) != 0;
+  const int hit_cway = first_set(ctagm);
+  const int ctlb_way = first_set(ctm);
+  const bool ctlb_hit = k.ctlb && !l1_served && !l2_hit && ctm != 0;
 
   const bool side_hit = rmm_hit || cl_hit || ctlb_hit;
   const int side_ppn = rmm_hit ? rmm_ppn_val
                        : ctlb_hit ? trow[ctlb_way * CTLB_W + 1] : ppn_true;
   const bool walk = !(l1_served || l2_hit || side_hit);
-  const bool wr = walk && act;
+  const int out = l1_served ? l1_out_ppn
+                  : l2_hit  ? l2_ppn_val
+                  : side_hit ? side_ppn
+                             : ppn_true;
+  if (!ACT) return out;
 
   // ---------------- latency (per-lane miss chain) -----------------
   const int cyc = l1_served ? 0
@@ -471,36 +734,37 @@ TLB_HD int step_access(const LaneParams& q, const LaneGeom& g,
                   : wadd(q.miss_chain, LAT_WALK);
 
   // ---------------- dead-entry protection -------------------------
-  const int dp_idx = vpn & (g.dp_n - 1);
-  const int dp_ctr = s.dp[dp_idx];
-  const bool dp_bypass = q.use_dead && walk && dp_ctr == 0;
-  if (q.use_dead && wr) s.dp[dp_idx] = imin(dp_ctr + 1, 3);
+  bool dp_bypass = false;
+  if (k.dead) {
+    const int dp_idx = vpn & (g.dp_n - 1);
+    const int dp_ctr = s.dp[dp_idx];
+    dp_bypass = walk && dp_ctr == 0;
+    if (walk) s.dp[dp_idx] = imin(dp_ctr + 1, 3);
+  }
 
   // ---------------- L2 fill (precomputed record; LRU victim) ------
-  // Victim scans run only when their fill happens: the victim is read by
-  // nothing else.
-  const bool served_huge = q.is_thp && fill_k == K_HUGE;
-  const int fill_set = served_huge ? s2h : s2;
-  const bool fill_wr = wr && !dp_bypass;
   int cov_delta = 0;
-  if (fill_wr) {
-    int* frow = s.l2 + fill_set * W * L2_W;
-    int victim = 0, best = 0;
-    for (int w = 0; w < W; ++w) {       // first minimum (jnp.argmin)
-      const int* e = frow + w * L2_W;
-      const int score = w < q.n_ways
-                            ? (e[L2_KCLS] != K_INVALID ? e[L2_LRU] : SCORE_NEG)
-                            : SCORE_BIG;
-      if (w == 0 || score < best) {
-        victim = w;
-        best = score;
-      }
-    }
-    int* ve = frow + victim * L2_W;
+  if (walk && !dp_bypass) {
+    int* ve = frow + (early ? l2_victim : l2_victim_of()) * L2_W;
     const bool v_valid = ve[L2_KCLS] != K_INVALID;
     cov_delta = wsub(fill_contig, v_valid ? ve[L2_CONTIG] : 0);
-    // the victim's old fields, read before the fill overwrites them
-    const int ev_tag = ve[L2_TAG], ev_ppn = ve[L2_PPN], ev_asid = ve[L2_ASID];
+    if (k.ctlb && v_valid) {
+      // Victima move: a valid L2 victim drops into the cache-backed tier
+      // (its old fields, read before the fill overwrites them)
+      const int ev_tag = ve[L2_TAG], ev_ppn = ve[L2_PPN],
+                ev_asid = ve[L2_ASID];
+      int* vtrow =
+          s.ctlb + (ev_tag & (g.ctlb_sets - 1)) * g.ctlb_ways * CTLB_W;
+      int* c = vtrow + wp.first_min(g.ctlb_ways, [&](int w) {
+        const int tag = vtrow[w * CTLB_W], lru = vtrow[w * CTLB_W + 2];
+        return tag >= 0 ? lru : SCORE_NEG;
+      }) * CTLB_W;
+      cov_delta = wadd(cov_delta, c[0] >= 0 ? 0 : 1);
+      c[0] = ev_tag;
+      c[1] = ev_ppn;
+      c[2] = t;
+      c[3] = ev_asid;
+    }
     ve[L2_TAG] = fill_tag;
     ve[L2_KCLS] = fill_k;
     ve[L2_CONTIG] = fill_contig;
@@ -508,101 +772,85 @@ TLB_HD int step_access(const LaneParams& q, const LaneGeom& g,
     ve[L2_LRU] = t;
     ve[L2_ASID] = cur;
     ve[L2_AUX] = fill_aux;
-    // Victima move: a valid L2 victim drops into the cache-backed tier
-    if (q.has_ctlb && v_valid) {
-      int* vtrow = s.ctlb + (ev_tag & (g.ctlb_sets - 1)) * g.ctlb_ways * CTLB_W;
-      const int victim_t = lru_victim(vtrow, g.ctlb_ways, CTLB_W, 0,
-                                      V_TAG_NONNEG, 2);
-      int* c = vtrow + victim_t * CTLB_W;
-      cov_delta = wadd(cov_delta, c[0] >= 0 ? 0 : 1);
-      c[0] = ev_tag;
-      c[1] = ev_ppn;
-      c[2] = t;
-      c[3] = ev_asid;
-    }
   }
   // the LRU touches go into the already-filled arrays (a hit and a fill
   // never happen in one step, but the order is the reference's)
-  if (l2_hit && !walk && !l1_served && act)
+  if (l2_hit && !walk && !l1_served)
     s.l2[(touch_set * W + tw) * L2_W + L2_LRU] = t;
-  if (ctlb_hit && act) trow[ctlb_way * CTLB_W + 2] = t;
+  if (ctlb_hit) trow[ctlb_way * CTLB_W + 2] = t;
 
   // ---------------- side fills (gated) ----------------------------
-  if (wr && q.has_rmm) {
-    const int victim_r = lru_victim(s.rmm, RMM_ENTRIES, RMM_W, 1,
-                                    V_POSITIVE, 3);
-    int* r = s.rmm + victim_r * RMM_W;
-    cov_delta = wadd(cov_delta, wsub(rl_v, r[1] > 0 ? r[1] : 0));
-    r[0] = rs_v;
-    r[1] = rl_v;
-    r[2] = rmm_fill_ppn;
-    r[3] = t;
-    r[4] = cur;
+  if (k.rmm) {
+    if (walk) {
+      int* x = s.rmm + (early ? rmm_victim : rmm_victim_of()) * RMM_W;
+      cov_delta = wadd(cov_delta, wsub(rl_v, x[1] > 0 ? x[1] : 0));
+      x[0] = rs_v;
+      x[1] = rl_v;
+      x[2] = rmm_fill_ppn;
+      x[3] = t;
+      x[4] = cur;
+    }
+    if (rmm_hit) s.rmm[sw_r * RMM_W + 3] = t;
   }
-  if (rmm_hit && act) s.rmm[sw * RMM_W + 3] = t;
-
-  if (wr && q.has_cluster && bm != wshl(1, vpn & 7)) {   // clusterable
-    int* c = crow + lru_victim(crow, CLUS_WAYS, CLUS_W, 1, V_NONZERO, 2) * CLUS_W;
-    c[0] = cwd;
-    c[1] = bm;
-    c[2] = t;
-    c[3] = cur;
+  if (k.clus) {
+    if (walk && bm != wshl(1, vpn & 7)) {   // clusterable
+      int* c = crow + (early ? clus_victim : clus_victim_of()) * CLUS_W;
+      c[0] = cwd;
+      c[1] = bm;
+      c[2] = t;
+      c[3] = cur;
+    }
+    if (cl_hit) crow[hit_cway * CLUS_W + 2] = t;
   }
-  if (cl_hit && act) crow[hit_cway * CLUS_W + 2] = t;
 
   // ---------------- L1 fills --------------------------------------
-  if (!l1_served && served_huge && act) {
-    int* e = l1hrow + lru_victim(l1hrow, L1H_WAYS, L1_W, 0, V_TAG_NONNEG, 2) * L1_W;
+  if (!l1_served && served_huge) {
+    int* e = l1hrow + (early ? l1h_victim : l1h_victim_of()) * L1_W;
     e[0] = hv;
     e[1] = fill_ppn;
     e[2] = t;
     e[3] = cur;
   }
-  if (q.is_thp && l1_served && h_any && !l1_hit && act)
-    l1hrow[l1h_way * L1_W + 2] = t;
-  if (!l1_served && !served_huge && act) {
-    int* e = l1row + lru_victim(l1row, L1_WAYS, L1_W, 0, V_TAG_NONNEG, 2) * L1_W;
+  if (k.thp && l1_served && h_any && !l1_hit) l1hrow[l1h_way * L1_W + 2] = t;
+  if (!l1_served && !served_huge) {
+    int* e = l1row + (early ? l1_victim : l1_victim_of()) * L1_W;
     e[0] = vpn;
     e[1] = ppn_true;
     e[2] = t;
     e[3] = cur;
   }
-  if (l1_hit && act) l1row[l1_way * L1_W + 2] = t;
+  if (l1_hit) l1row[l1_way * L1_W + 2] = t;
 
   // ---------------- predictor update (gated) ----------------------
-  const bool upd = q.use_pred && act;
-  if (upd && gen_coal) {
-    s.misc[M_PRED] = hit_k;
-  } else if (upd && walk && fill_k >= 0) {
-    s.misc[M_PRED] = fill_k;
+  if (k.pred && gen_coal) {
+    r.pred = hit_k;
+  } else if (k.pred && walk && fill_k >= 0) {
+    r.pred = fill_k;
   }
 
   // ---------------- accounting ------------------------------------
-  int* c = s.cnt;
-  if (act) {
-    c[C_L1] = wadd(c[C_L1], l1_served ? 1 : 0);
-    c[C_REG] = wadd(c[C_REG], (reg_hit && !l1_served) ? 1 : 0);
-    c[C_COAL] = wadd(c[C_COAL],
-                     ((coal_hit || side_hit) && !reg_hit && !l1_served) ? 1 : 0);
-    c[C_WALK] = wadd(c[C_WALK], walk ? 1 : 0);
-    c[C_PROBE] = wadd(c[C_PROBE], (coal_hit && !l1_served) ? probes_used : 0);
-    // dead-protect rides C_PRED: bypassed fills count as predictions
-    c[C_PRED] = wadd(c[C_PRED],
-                     (l1_served ? 0 : pred_ok) + (dp_bypass ? 1 : 0));
-    c[C_CYC] = wadd(c[C_CYC], cyc);
+  int* c = r.cnt;
+  c[C_L1] = wadd(c[C_L1], l1_served ? 1 : 0);
+  c[C_REG] = wadd(c[C_REG], (reg_hit && !l1_served) ? 1 : 0);
+  c[C_COAL] = wadd(c[C_COAL],
+                   ((coal_hit || side_hit) && !reg_hit && !l1_served) ? 1 : 0);
+  c[C_WALK] = wadd(c[C_WALK], walk ? 1 : 0);
+  c[C_PROBE] = wadd(c[C_PROBE], (coal_hit && !l1_served) ? probes_used : 0);
+  // dead-protect rides C_PRED: bypassed fills count as predictions
+  c[C_PRED] = wadd(c[C_PRED], (l1_served ? 0 : pred_ok) + (dp_bypass ? 1 : 0));
+  c[C_CYC] = wadd(c[C_CYC], cyc);
+  c[C_COV] = wadd(c[C_COV], cov_delta);
+  // the sample slot uses the pre-increment t and the post-add counters
+  if (r.smp == 0) {
+    s.cov[imin(t / q.sample_every, N_COV_SAMPLES - 1)] = c[C_COV];
+    r.smp = q.sample_every;
   }
-  c[C_COV] = wadd(c[C_COV], cov_delta);  // every term is gated by act
-  if (act) {
-    // the sample slot uses the pre-increment t and the post-add counters
-    const int se = q.sample_every;
-    if (t % se == se - 1) s.cov[imin(t / se, N_COV_SAMPLES - 1)] = c[C_COV];
-    s.misc[M_T] = t + 1;
-  }
-
-  return l1_served ? l1_out_ppn
-         : l2_hit  ? l2_ppn_val
-         : side_hit ? side_ppn
-                    : ppn_true;
+  r.smp -= 1;
+  r.t = t + 1;
+  // every thread wrote the same values; the next step's way threads read
+  // entries other threads wrote
+  wp.sync();
+  return out;
 }
 
 // Does [lo, lo + ln) hold a dirty vpn?  `dc` is the [P + 1] prefix sum of

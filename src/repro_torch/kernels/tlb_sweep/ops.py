@@ -9,6 +9,9 @@ on the device of its tensors: CPU tensors run the plain version
 (:func:`.ref.run_lanes_ref`), CUDA tensors launch the CUDA kernel
 (``csrc/tlb_sweep.cu``) or raise — there is no fallback from one to the
 other.  ``LAUNCHES["tlb_sweep"]`` counts the kernel's launches.
+:func:`prepare_cuda` also keeps the cycles each lane's block took
+(``PreparedBatch.cycles``), and :func:`round_cycles` measures the card's
+dependent shared-memory round, the floor of one serial step.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ N_PARAM_FIELDS = len(PARAM_KEYS)
 SEG_KEYS = ("seg_map", "seg_fill", "seg_clus", "seg_dirty", "seg_shoot",
             "seg_asid", "seg_switch", "seg_fall", "seg_fasid")
 MAXK_CAP = 16                 # widest kvals row the kernel takes
+WARP = 32                     # widest structure: one way per thread of a warp
+MAX_CLASS = 30                # largest alignment class the kernel takes
 SMEM_LIMIT = 232_448          # bytes of shared memory a block may use (H100)
 
 #: kernel launches so far, by kernel name (plain-version runs not counted)
@@ -86,16 +91,49 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError("tlb_sweep: " + msg)
 
 
+class PreparedBatch:
+    """One checked batch laid out on the card (see :func:`prepare_cuda`).
+    Calling it launches the kernel once, counts the launch and returns
+    ``(final_state, ppns)``; ``cycles`` is then the ``[L]`` int64 tensor of
+    the clock64() cycles each lane's block took in that launch."""
+
+    def __init__(self, lib, ptrs, ints, shape):
+        self.lib, self.ptrs, self.ints = lib, ptrs, ints
+        self.L, self.T, self.device = shape
+        self.cycles: Optional[torch.Tensor] = None
+
+    def __call__(self):
+        L, T, dev = self.L, self.T, self.device
+        ppn = torch.empty((L, T), dtype=torch.int32, device=dev)
+        counters = torch.empty((L, 9), dtype=torch.int32, device=dev)
+        cov = torch.empty((L, 64), dtype=torch.int32, device=dev)
+        cycles = torch.empty(L, dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = self.lib.tlb_sweep_launch(
+                *[t.data_ptr() for t in self.ptrs], ppn.data_ptr(),
+                counters.data_ptr(), cov.data_ptr(), cycles.data_ptr(),
+                *self.ints, stream)
+        if rc != 0:
+            raise RuntimeError("tlb_sweep kernel launch failed: "
+                               + self.lib.tlb_sweep_error_string(rc).decode())
+        LAUNCHES["tlb_sweep"] += 1
+        self.cycles = cycles
+        return dict(counters=counters, cov_samples=cov), ppn
+
+
 @torch.no_grad()
-def prepare_cuda(lanes, stacks, st0, seg_bounds):
+def prepare_cuda(lanes, stacks, st0, seg_bounds) -> PreparedBatch:
     """Check and lay out one packed batch of CUDA tensors for the kernel;
-    returns a callable that launches it (and counts the launch) and
-    returns ``(final_state, ppns)`` — so a timing loop measures the launch
-    alone, without the host-side checks.
+    returns a :class:`PreparedBatch` that launches it (and counts the
+    launch) when called — so a timing loop measures the launch alone,
+    without the host-side checks.
 
     ``st0`` must be the fresh state of ``init_batched_state``: the kernel
     builds that state itself in shared memory and reads only its geometry
-    (L2 sets/ways, cache-backed tier, dead-entry table) from ``st0``."""
+    (L2 sets/ways, cache-backed tier, dead-entry table) from ``st0``.  A
+    structure probed one way per thread must fit the warp: more than 32
+    L2 or cache-tier ways are refused, as are classes outside -1..30."""
     from . import _build
 
     dev = stacks["trace"].device
@@ -126,6 +164,9 @@ def prepare_cuda(lanes, stacks, st0, seg_bounds):
     for n, what in ((sets, "L2 sets"), (ctlb_sets, "cache-tier sets"),
                     (dp_n, "dead-entry table")):
         _check(n & (n - 1) == 0, f"{what} ({n}) must be a power of two")
+    for n, what in ((ways, "L2 ways"), (ctlb_ways, "cache-tier ways")):
+        _check(n <= WARP, f"{what} ({n}) must be at most {WARP}: the kernel "
+               "probes one way per thread of a warp")
     kvals = lanes["kvals"].to(torch.int32).contiguous()
     maxk = kvals.shape[1]
     _check(maxk <= MAXK_CAP, f"at most {MAXK_CAP} alignment classes")
@@ -150,9 +191,10 @@ def prepare_cuda(lanes, stacks, st0, seg_bounds):
         segs[3].min(), segs[3].max() - (dirty.shape[0] - 1),
         set_mask.min(), set_mask.max() - (sets - 1),
         n_ways.min() - 1, n_ways.max() - ways,
+        kvals.min() + 1, kvals.max() - MAX_CLASS,
     ]).cpu().tolist()
     names = ("trace vpn", "trace_id", "seg_map", "seg_fill", "seg_clus",
-             "seg_dirty", "set_mask", "n_ways")
+             "seg_dirty", "set_mask", "n_ways", "kvals")
     for i, name in enumerate(names):
         _check(lim[2 * i] >= 0 and lim[2 * i + 1] <= 0,
                f"{name} out of range for the packed stacks")
@@ -167,24 +209,29 @@ def prepare_cuda(lanes, stacks, st0, seg_bounds):
     with_switch = int(needs_switch_pass(
         {k: lanes[k].cpu().numpy() for k in
          ("seg_switch", "seg_fall", "seg_fasid", "seg_asid", "asid0")}))
+    ptrs = (params, kvals, segs, bounds, trace_id, trace, maps, fills, clus,
+            dirty)
+    ints = (L, maxk, n_segs, T, P, Pc, sets, ways, ctlb_sets, ctlb_ways,
+            dp_n, with_switch)
+    return PreparedBatch(lib, ptrs, ints, (L, T, dev))
 
-    def launch():
-        ppn = torch.empty((L, T), dtype=torch.int32, device=dev)
-        counters = torch.empty((L, 9), dtype=torch.int32, device=dev)
-        cov = torch.empty((L, 64), dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.tlb_sweep_launch(
-                params.data_ptr(), kvals.data_ptr(), segs.data_ptr(),
-                bounds.data_ptr(), trace_id.data_ptr(), trace.data_ptr(),
-                maps.data_ptr(), fills.data_ptr(), clus.data_ptr(),
-                dirty.data_ptr(), ppn.data_ptr(), counters.data_ptr(),
-                cov.data_ptr(), L, maxk, n_segs, T, P, Pc, sets, ways,
-                ctlb_sets, ctlb_ways, dp_n, with_switch, stream)
-        if rc != 0:
-            raise RuntimeError("tlb_sweep kernel launch failed: "
-                               + lib.tlb_sweep_error_string(rc).decode())
-        LAUNCHES["tlb_sweep"] += 1
-        return dict(counters=counters, cov_samples=cov), ppn
 
-    return launch
+def round_cycles(device="cuda", n: int = 1 << 16) -> float:
+    """Cycles (clock64) of one dependent shared-memory load -> compare ->
+    store round on the card, the floor of one step of a serial chain:
+    ``tlb_round_kernel`` runs ``n`` such rounds on one thread."""
+    from . import _build
+
+    lib = _build.load()
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        for _ in range(2):                     # the first run warms up
+            rc = lib.tlb_round_launch(n, out.data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError("tlb_round kernel launch failed: "
+                                   + lib.tlb_sweep_error_string(rc).decode())
+        cyc, word = out.cpu().tolist()
+    if word != n:
+        raise RuntimeError(f"tlb_round kernel ended on {word}, not {n}")
+    return cyc / n

@@ -8,8 +8,9 @@
   packed state, for all 10 method kinds — including states where several
   ways match (first-index semantics) and LRU ties (first-minimum victims);
 * the CUDA kernel's constants (``csrc/tlb_lane.cuh``) equal the Python
-  layout they mirror, and the kernel's lane arithmetic, compiled by the
-  host C++ compiler, equals the plain version bit for bit;
+  layout they mirror, and the kernel's warp step, compiled by the host
+  C++ compiler with its 32 way threads emulated, equals the plain version
+  bit for bit on the test worlds and on ``chip_smoke.edge_batches``;
 * the port stays free of JAX.
 
 Tolerance is 0 everywhere: every quantity here is an integer (or a mean of
@@ -389,7 +390,7 @@ def host_lane_lib(tmp_path_factory):
     return ctypes.CDLL(str(out))
 
 
-def _host_run(lib, lanes, stacks, st0, sb, nthr):
+def _host_run(lib, lanes, stacks, st0, sb, nthr, all_kinds=False):
     L = lanes["t_real"].shape[0]
     arrays = [tops.pack_params(lanes).numpy(),
               np.asarray(lanes["kvals"], np.int32),
@@ -409,25 +410,118 @@ def _host_run(lib, lanes, stacks, st0, sb, nthr):
     ints = (L, arrays[1].shape[1], len(sb) - 1, T_,
             stacks["maps"].shape[1], stacks["clus"].shape[1], sets, ways,
             cs, cw, st0["dp"].shape[1], int(tlp.needs_switch_pass(lanes)),
-            nthr)
-    lib.tlb_lane_host(*[a.ctypes.data_as(ctypes.c_void_p)
-                        for a in (*arrays, ppn, cnt, cov)],
-                      *[ctypes.c_int(x) for x in ints])
+            nthr, int(all_kinds))
+    rc = lib.tlb_lane_host(*[a.ctypes.data_as(ctypes.c_void_p)
+                             for a in (*arrays, ppn, cnt, cov)],
+                           *[ctypes.c_int(x) for x in ints])
+    assert rc == 0
     return cnt, cov, ppn
+
+
+def _host_vs_plain(lib, lanes, stacks, st0, sb):
+    """The host build against the plain version twice: each lane's step
+    compiled for its kind with the entry passes over 32 'threads' (the
+    kernel's way), and the FT_ALL step, which reads the lane's flags at
+    run time, with the passes over 3 (uneven shares)."""
+    r_st, r_pp = run_lanes(lanes, stacks, st0, sb, device="cpu")
+    for nthr, all_kinds in ((32, False), (3, True)):
+        cnt, cov, ppn = _host_run(lib, lanes, stacks, st0, sb, nthr,
+                                  all_kinds)
+        np.testing.assert_array_equal(cnt, r_st["counters"].numpy())
+        np.testing.assert_array_equal(cov, r_st["cov_samples"].numpy())
+        np.testing.assert_array_equal(ppn, r_pp.numpy())
 
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_kernel_lane_logic_on_host_matches_plain(host_lane_lib, world):
-    """Counters, coverage samples and the whole ppn array of every batch;
-    the entry passes are split over 3 'threads' as the warp splits them."""
+    """Counters, coverage samples and the whole ppn array of every batch:
+    the kernel's warp step with its 32 way threads emulated."""
     cells = world_cells(T, world)
     for group in batches_of(cells, range(len(cells))):
-        lanes, stacks, st0, sb = pack_batch([cells[i] for i in group])
-        r_st, r_pp = run_lanes(lanes, stacks, st0, sb, device="cpu")
-        cnt, cov, ppn = _host_run(host_lane_lib, lanes, stacks, st0, sb, 3)
-        np.testing.assert_array_equal(cnt, r_st["counters"].numpy())
-        np.testing.assert_array_equal(cov, r_st["cov_samples"].numpy())
-        np.testing.assert_array_equal(ppn, r_pp.numpy())
+        _host_vs_plain(host_lane_lib,
+                       *pack_batch([cells[i] for i in group]))
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+EDGE_BATCHES = ("chain", "short-lanes", "small-l2")
+
+
+@pytest.fixture(scope="module")
+def edge_batches():
+    """``chip_smoke.edge_batches``: the batches phase 3 and the card tests
+    also hold the kernel to."""
+    from repro_torch.core.sweep import SweepCell
+    out = _chip_smoke().edge_batches(tcore, SweepCell, np)
+    assert tuple(out) == EDGE_BATCHES
+    return out
+
+
+@pytest.mark.parametrize("name", EDGE_BATCHES)
+def test_kernel_lane_logic_on_host_edge_batches(host_lane_lib, edge_batches,
+                                                name):
+    """The probe-chain and victim edge cases, bit for bit."""
+    _host_vs_plain(host_lane_lib, *edge_batches[name])
+
+
+def test_edge_batches_hold_their_cases(edge_batches):
+    """Each edge the batches are meant to pin is really in them."""
+    lanes, stacks, st0, sb = edge_batches["chain"]
+    st, _ = run_lanes(lanes, stacks, st0, sb, device="cpu")
+    cnt = st["counters"].numpy()
+    kv, pred0, pred = lanes["kvals"], lanes["pred0"], lanes["use_pred"]
+    assert pred[0] and pred0[0] == -1                      # pred = -1
+    for i in (1, 7):                                       # pred not in K
+        assert pred[i] and pred0[i] not in kv[i]
+    assert (kv[7] >= 0).all()                 # ... with a full kvals row
+    for i in (2, 3):                                       # duplicates
+        live = kv[i][kv[i] >= 0]
+        assert len(set(live.tolist())) < live.size
+    assert (kv[4] == -1).sum() == 2 and kv[4][-1] == 4     # -1 holes
+    # coalesced hits past the first position (probes > hits), on lanes
+    # with and without the predictor; the no-predictor lane probes its
+    # smallest class last
+    for i in (2, 6):
+        assert cnt[i, tlp.C_PROBE] > cnt[i, tlp.C_COAL] > 0
+    assert kv[6].tolist() == [12, 10, 8, 4] and not pred[6]
+    assert cnt[:8, tlp.C_REG].sum() + cnt[9:13, tlp.C_REG].sum() > 0
+    assert lanes["t_real"][8] == 0 and cnt[8].sum() == 0   # t_real = 0
+    # kinds with no instance of their own take the general step
+    assert lanes["use_pred"][13] and lanes["has_rmm"][13]
+    assert lanes["use_pred"][14] and lanes["is_thp"][14]
+    assert cnt[13, tlp.C_COAL] > 0 and cnt[14, tlp.C_WALK] > 0
+
+    lanes, stacks, st0, sb = edge_batches["short-lanes"]
+    st, _ = run_lanes(lanes, stacks, st0, sb, device="cpu")
+    cnt = st["counters"].numpy()
+    shoot = lanes["seg_shoot"]
+    late = [i for i in range(lanes["t_real"].size)
+            if any(shoot[i, s] and sb[s] >= lanes["t_real"][i]
+                   for s in range(len(sb) - 1))]
+    assert late and any(cnt[i, tlp.C_SHOOT] > 0 for i in late)
+
+    lanes, stacks, st0, sb = edge_batches["small-l2"]
+    assert st0["l2"].shape[2] == 8 and {2, 3, 8} <= set(lanes["n_ways"])
+    assert lanes["seg_fall"].any() and tlp.needs_switch_pass(lanes)
+
+
+def test_prepare_cuda_refuses_more_ways_than_a_warp():
+    """The kernel probes one way per thread of a warp: 33 L2 ways are
+    refused before anything is built or launched."""
+    c = world_cells(T, "static")[0]
+    cell = dataclasses.replace(c, spec=dataclasses.replace(c.spec,
+                                                           l2_ways=33))
+    lanes, stacks, st0, sb = pack_batch([cell])
+    lt, stt, s0t = tops.as_tensors(lanes, stacks, st0, "cpu")
+    with pytest.raises(ValueError, match=r"L2 ways \(33\) must be at most 32"):
+        tops.prepare_cuda(lt, stt, s0t, sb)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ a card run them with
 The TLB-sweep kernel must equal the plain version bit for bit — counters,
 coverage samples and the whole ``[L, T]`` ppn array — on static, dynamic,
 multi-tenant, nested and parity-fault batches covering all 10 method kinds
-and every policy knob, and it must count one launch per batch.  The
+and every policy knob and on ``chip_smoke.edge_batches``, count one launch
+per batch, report every lane's cycles, and refuse L2s wider than a warp.  The
 paged-attention kernels must equal their plain version per class pass
 (o, m, l) and merged, f32 within 5e-5 and bf16 within 2e-2, at any split
 of a row's windows over blocks, keep the -1e30 semantics of wholly masked
@@ -19,6 +20,8 @@ InternLM2 token for token like the CPU.  The flash kernels must equal
 their plain version (bf16 also within one bf16 ulp), give the same bits
 twice and from strided views, and refuse rows off 16-byte boundaries.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -78,6 +81,70 @@ def test_run_sweep_on_card_translates_every_access(cuda):
         np.testing.assert_array_equal(r.ppn, np.asarray(m.ppn)[tr])
         assert (r.l1_hits + r.l2_regular_hits + r.l2_coalesced_hits
                 + r.walks) == r.accesses
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+EDGE_BATCHES = ("chain", "short-lanes", "small-l2")
+
+
+@pytest.mark.parametrize("name", EDGE_BATCHES)
+def test_kernel_edge_batches_match_plain(cuda, name):
+    """``chip_smoke.edge_batches``: unusual probe orders, t_real = 0,
+    short lanes before a later shootdown, padded ways — bit for bit, and
+    every lane's block reports its cycles."""
+    from repro_torch.core.sweep import SweepCell
+    from repro_torch.kernels.tlb_sweep.ops import prepare_cuda
+    edges = _chip_smoke().edge_batches(tcore, SweepCell, np)
+    assert tuple(edges) == EDGE_BATCHES
+    lanes, stacks, st0, sb = edges[name]
+    lt, stt, s0t = as_tensors(lanes, stacks, st0, cuda)
+    prep = prepare_cuda(lt, stt, s0t, sb)
+    k_st, k_pp = prep()
+    torch.cuda.synchronize()
+    r_st, r_pp = run_lanes_ref(lt, stt, s0t, sb)
+    for key in ("counters", "cov_samples"):
+        np.testing.assert_array_equal(k_st[key].cpu().numpy(),
+                                      r_st[key].cpu().numpy(), key)
+    np.testing.assert_array_equal(k_pp.cpu().numpy(), r_pp.cpu().numpy())
+    cyc = prep.cycles.cpu().numpy()
+    assert cyc.shape == (lanes["t_real"].size,) and (cyc > 0).all()
+
+
+def test_kernel_refuses_more_ways_than_a_warp(cuda):
+    """One way per thread of a warp: 32 L2 ways run, 33 are refused with
+    the reason."""
+    cells = world_cells(P, "static")[:2]
+    for ways in (32, 33):
+        cs = [dataclasses.replace(c, spec=dataclasses.replace(
+            c.spec, l2_ways=ways)) for c in cells]
+        lanes, stacks, st0, sb = pack_batch(cs)
+        lt, stt, s0t = as_tensors(lanes, stacks, st0, cuda)
+        if ways == 32:
+            k_st, k_pp = run_lanes(lt, stt, s0t, sb)
+            r_st, r_pp = run_lanes_ref(lt, stt, s0t, sb)
+            assert torch.equal(k_pp.cpu(), r_pp.cpu())
+            assert torch.equal(k_st["counters"].cpu(),
+                               r_st["counters"].cpu())
+        else:
+            with pytest.raises(ValueError,
+                               match=r"L2 ways \(33\) must be at most 32"):
+                run_lanes(lt, stt, s0t, sb)
+
+
+def test_round_cycles_is_a_shared_memory_latency(cuda):
+    """The chain floor's round: a dependent shared-memory load, compare
+    and store take tens of cycles, not one and not thousands."""
+    from repro_torch.kernels.tlb_sweep.ops import round_cycles
+    assert 10 < round_cycles(cuda) < 500
 
 
 def test_kernel_rejects_out_of_range_trace(cuda):

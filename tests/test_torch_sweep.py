@@ -162,6 +162,91 @@ def test_chip_smoke_bound_counts_what_the_run_needs():
     assert ms == max(t_bytes, t_ops)
     assert by == ("bytes" if t_bytes >= t_ops else "operations")
     assert n_bytes >= 4 * 2 * acc       # at least the trace and the ppns
+    # the chain floor: the longest real lane's steps, one measured
+    # shared-memory round each, at the SM clock
+    floor_ms, steps = cs.chain_floor(lanes, 40.0, 2000.0)
+    assert steps == max(r.accesses for r in res) == 200
+    assert floor_ms == pytest.approx(200 * 40.0 / 2.0e9 * 1e3)
+    lanes_pad = dict(lanes, t_real=np.r_[lanes["t_real"][:-1], 0])
+    assert cs.chain_floor(lanes_pad, 40.0, 2000.0)[1] == 200
+
+
+def _ptxas(frame=0, spill=0, drop=None):
+    """A ``-Xptxas -v`` report of the TLB library as nvcc prints it: the
+    four kernel templates (the last with the given stack frame and spill
+    stores) and the round kernel; ``drop`` leaves one template out."""
+    names = [f"_Z16tlb_sweep_kernelILb{w}ELb{g}EEv9SweepArgs"
+             for w in (0, 1) for g in (0, 1) if (w, g) != drop]
+    out = []
+    for i, name in enumerate(names + ["_Z16tlb_round_kerneliPx"]):
+        last = i == len(names) - 1
+        out += [f"ptxas info    : Compiling entry function '{name}' for "
+                "'sm_90a'",
+                f"ptxas info    : Function properties for {name}",
+                f"    {frame if last else 0} bytes stack frame, "
+                f"{spill if last else 0} bytes spill stores, 0 bytes spill "
+                "loads",
+                f"ptxas info    : Used {140 + i} registers, used 0 barriers"
+                + (", 16 bytes smem" if name.startswith("_Z16tlb_round")
+                   else "")]
+    return "\n".join(out) + "\n"
+
+
+def test_chip_smoke_ptxas_check_fails_on_local_memory():
+    """Phase 1 reads every TLB template from the ptxas report and fails on
+    a stack frame or spills in any."""
+    cs = _chip_smoke()
+    funcs = cs.check_tlb_ptxas(_ptxas())
+    assert sorted(f["registers"] for f in funcs.values()) == [140, 141,
+                                                             142, 143]
+    assert cs.ptxas_functions(_ptxas())["_Z16tlb_round_kerneliPx"][
+        "smem"] == 16
+    for frame, spill in ((16, 0), (0, 8)):
+        with pytest.raises(ValueError, match="local memory"):
+            cs.check_tlb_ptxas(_ptxas(frame, spill))
+    with pytest.raises(ValueError, match="4 tlb_sweep_kernel templates"):
+        cs.check_tlb_ptxas(_ptxas(drop=(1, 1)))
+
+
+def test_chip_smoke_lane_spread_names_the_slowest_lane():
+    cs = _chip_smoke()
+    cells = world_cells(T, "static")[:3]
+    spread = cs.lane_spread(np.array([300, 900, 600, 50]), cells,
+                            ["a", "b", "c"], 1000.0)
+    assert (spread["min_cycles"], spread["median_cycles"],
+            spread["max_cycles"]) == (300, 600, 900)
+    assert spread["max_ms"] == pytest.approx(900 / 1e6)
+    assert spread["slowest_lane"] == 1 and spread["slowest_mapping"] == "b"
+    assert spread["slowest_method"] == cells[1].spec.name
+    assert spread["pad_lanes_max_cycles"] == 50
+    n = cells[0].trace.shape[0]
+    assert spread["cycles_per_access"] == {"base": pytest.approx(300 / n),
+                                           "thp": pytest.approx(900 / n),
+                                           "colt": pytest.approx(600 / n)}
+
+
+def test_chip_smoke_pack_breakdown_adds_up_and_packs_the_same():
+    """The packing split times the batch ``pack_batch`` gives and leaves
+    the port's functions as they were."""
+    from repro_torch.core import lane_program, sweep
+    cs = _chip_smoke()
+    cells = world_cells(T, "static")[:4]
+    before = {n: getattr(lane_program, n) for n in
+              ("_map_record", "_fill_profile", "_pad_stack",
+               "cluster_bitmap")}
+    (lanes, stacks, st0, sb), spent = cs.pack_breakdown(cells)
+    want = sweep.pack_batch(cells)
+    for got_d, want_d in zip((lanes, stacks, st0), want[:3]):
+        assert got_d.keys() == want_d.keys()
+        for k in got_d:
+            np.testing.assert_array_equal(got_d[k], want_d[k], k)
+    assert sb == want[3]
+    assert {n: getattr(lane_program, n) for n in before} == before
+    assert sweep.init_batched_state is lane_program.init_batched_state
+    parts = [v for k, v in spent.items() if k != "total"]
+    assert spent["total"] == pytest.approx(sum(parts))
+    assert min(v for k, v in spent.items() if k != "rest") >= 0
+    assert spent["_fill_profile"] > 0 and spent["_map_record"] > 0
 
 
 @pytest.mark.slow
