@@ -56,6 +56,37 @@ read just after it.  Phases, each fatal on failure:
    steps times one dependent shared-memory round, measured on the card);
    ``pack_batch`` split by function on the host clock;
 
+W1. the five scenario sections of ``benchmarks/tlb_suite.py`` at its
+    defaults, built through the port's scenario registry by this script's
+    twins of its ``SweepPlan`` and ``_add_suite``: every workload and
+    adversarial scenario at 2^19 pages (``bench_scenarios``), the dynamic
+    ones at 2^16 (``bench_dynamic``, the shoot pass), the multi-tenant
+    ones at 2^15 under both context-switch policies (one ``run_sweep`` per
+    world; the switch template), the nested ones at 2^15 under both
+    coherence policies (one per world; the union grids of guest and host
+    epochs) and the accelerator ones at 2^19 (Base, |K|=3, Subregion,
+    Cache-TLB, Dead-Protect; the victim tier and the refault table), all
+    at 120,000 accesses: 20 worlds and 274 cells.  Every world's digests
+    (trace, ppn arrays, boundaries) must equal the JAX package's in
+    ``tests/data/port_scenario_reference.json`` before any sweep, and the
+    roster its cells; then each section runs through
+    ``run_sweep(device="cuda", cache=False)``: the TLB kernel's launch
+    count must rise by the number of batches, every translation must be
+    the live mapping's, hits and walks must add up to the accesses, and
+    every cell must equal the fixture's (counters, coverage, ppn digest;
+    tolerance 0).  Each section's derived rows (relative misses,
+    invalidated entries, stall cycles, cycles per access) are printed as
+    its bench function returns them, with its host-clock wall, its
+    ``pack_batch`` time, its batches' kernel time (CUDA events behind the
+    queued spin) and clock64 cycles per lane (min, median, max, the
+    slowest lane); the host's launch of each batch must take less time
+    than the spin;
+W2. ``standard_suite(device="cuda")`` on the W1 ``kv-churn`` world (18
+    runs in one launch) must equal the fixture's JAX ``standard_suite``,
+    names included; ``run_method(device="cuda")`` for each accelerator
+    kind on ``accel-gather-x1024`` must equal the fixture's W1 cell over
+    the whole trace and the port's oracle over its first 4,096 accesses;
+
 S1. the paged-attention kernel's ``-Xptxas -v`` report;
 S2. InternLM2-1.8B at full width (24 layers, d_model 2048, 16 heads over 8
     KV heads, vocab 92,544), weights drawn with the port's seeded numpy
@@ -117,7 +148,9 @@ F4. timing of one InternLM2-1.8B layer's kernel at S = 3,072 and 32,768
     ``scaled_dot_product_attention`` call on the same q and K/V repeated to
     16 heads (the library yardstick, repeat excluded), the plain version by
     CUDA events, and the bound;
-5. the kernel line, the card line, and the ``{"ok": true, ...}`` line.
+5. the kernel line (the TLB kernel's ``launches`` are phase 2's, its
+   ``launches_by_path`` also W1's and W2's), the card line, and the
+   ``{"ok": true, ...}`` line.
 
 It exits non-zero, printing no result, without a card or outside a
 checkout of the repository.  The serving helpers below also run on the
@@ -151,10 +184,27 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_SM_CLOCK = 64
 # H100 SXM dense bf16 tensor rate (NVIDIA's data sheet)
 BF16_FLOP_PER_S = 989e12
-# clock cycles of the spin queued before a CUDA-events timing (~1.1 ms at
-# the H100's 1.755 GHz boost clock): longer than the host takes to queue a
-# kernel wrapper's launch (~0.1 ms)
+# clock cycles of the spin queued before a CUDA-events timing: about 1.0 ms
+# at the H100 SXM's 1,980 MHz clocks.max.sm (PERF.md), longer than the host
+# takes to queue a kernel wrapper's launch (0.1-0.2 ms; W1 measures the TLB
+# wrapper's and fails where it reaches the spin)
 SLEEP_CYCLES = 2_000_000
+
+# ------------------------------------------------ scenario sweeps, W1 + W2
+SCEN_REF_JSON = os.path.join(HERE, "tests", "data",
+                             "port_scenario_reference.json")
+# benchmarks/tlb_suite.py's scenario sections at their defaults: section ->
+# (scenario families, page cap under W1_MAX_PAGES; None: no cap of its own)
+W1_SECTIONS = {"scenarios": (("workload", "adversarial"), None),
+               "dynamic": (("dynamic",), 1 << 16),
+               "multitenant": (("multitenant",), 1 << 15),
+               "nested": (("nested",), 1 << 15),
+               "accelerator": (("accelerator",), None)}
+W1_MAX_PAGES, W1_TRACE_LEN = 1 << 19, 120_000
+W1_SEEDS = dict(map_seed=0, trace_seed=8)     # tlb_suite.SCENARIO_SEEDS
+# W2: standard_suite's world, and the accesses run_method is held to the
+# oracle over
+W2_WORLD, W2_PREFIX = "kv-churn", 4096
 
 # ----------------------------------------------------------- serving part
 SERVE_REF_JSON = os.path.join(HERE, "tests", "data",
@@ -247,15 +297,10 @@ def int32_rate() -> float:
     return INT32_OPS_PER_SM_CLOCK * sms * mhz * 1e6
 
 
-def roster(m, tc):
-    """``benchmarks/tlb_suite.py::_add_suite``'s 12 methods."""
-    b = tc.baselines
-    specs = [b.base_spec(), b.thp_spec(), b.rmm_spec(), b.colt_spec(),
-             b.cluster_spec()] + [b.anchor_spec(d) for d in ANCHOR_GRID]
-    for psi in (2, 3, 4):
-        specs.append(b.kaligned_for_mapping(
-            m, psi=psi, theta=1.0 if psi > 2 else 0.9))
-    return specs
+def roster(m):
+    """The specs of ``benchmarks/tlb_suite.py::_add_suite``'s 12 methods
+    over the static mapping ``m`` (Table 4's roster)."""
+    return [spec for spec, _, _ in suite_specs(m, ANCHOR_GRID)]
 
 
 def cuda_time_ms(fn, reps: int, flush=None) -> float:
@@ -485,6 +530,478 @@ def pack_breakdown(cells):
     spent["rest"] = total - sum(spent.values())
     spent["total"] = total
     return packed, spent
+
+
+# ---------------------------------------------------------------------------
+# Scenario sweeps, W1 and W2 (the roster helpers also run on the CPU in
+# the tests)
+# ---------------------------------------------------------------------------
+
+class SweepPlan:
+    """Twin of ``benchmarks/tlb_suite.py::SweepPlan``: sweep cells tagged
+    ``(row, label, group)``.  ``reduce`` keeps one result per row and
+    label; in group ``"anchor"`` the one with the fewest walks (the first
+    on ties), the Anchor-Static policy of the paper's §4.1."""
+
+    def __init__(self):
+        self.cells, self.tags = [], []
+
+    def add(self, spec, mapping, trace, row: str, label: str,
+            group: str = "plain") -> None:
+        from repro_torch.core.sweep import SweepCell
+        self.cells.append(SweepCell(spec, mapping, trace))
+        self.tags.append((row, label, group))
+
+    def reduce(self, results) -> dict:
+        out: dict = {}
+        for (row, label, group), r in zip(self.tags, results):
+            cols = out.setdefault(row, {})
+            if group == "anchor" and label in cols:
+                if r.walks < cols[label].walks:
+                    cols[label] = r
+            else:
+                cols[label] = r
+        return out
+
+
+def suite_specs(k_mapping, anchor_grid, psis=(2, 3, 4), k_hist=None):
+    """``benchmarks/tlb_suite.py::_add_suite``'s roster as ``(spec, label,
+    group)``: Base, THP, RMM, COLT, Cluster, Anchor over ``anchor_grid``
+    (group ``"anchor"``) and |K| = psi Aligned for each psi (theta 1.0
+    above psi 2, else 0.9), K from ``k_hist`` or else from the histogram
+    of the static mapping ``k_mapping``."""
+    from repro_torch.core import baselines as b
+    out = [(b.base_spec(), "Base", "plain"), (b.thp_spec(), "THP", "plain"),
+           (b.rmm_spec(), "RMM", "plain"), (b.colt_spec(), "COLT", "plain"),
+           (b.cluster_spec(), "Cluster", "plain")]
+    out += [(b.anchor_spec(d), "Anchor-Static", "anchor")
+            for d in anchor_grid]
+    for psi in psis:
+        theta = 1.0 if psi > 2 else 0.9
+        spec = (b.kaligned_for_histogram(k_hist, psi=psi, theta=theta)
+                if k_hist is not None
+                else b.kaligned_for_mapping(k_mapping, psi=psi, theta=theta))
+        out.append((spec, f"|K|={psi}", "plain"))
+    return out
+
+
+def add_suite(plan: SweepPlan, m, tr, row: str, anchor_grid,
+              psis=(2, 3, 4), k_mapping=None, k_hist=None,
+              transform=None) -> None:
+    """Twin of ``benchmarks/tlb_suite.py::_add_suite``: the cells of
+    ``suite_specs`` over world ``m`` (static or segmented) and ``tr``, K
+    read from ``k_hist`` or ``k_mapping`` (default ``m``); ``transform``
+    rewrites every spec."""
+    tx = transform if transform is not None else (lambda s: s)
+    k_src = k_mapping if k_mapping is not None else m
+    for spec, label, group in suite_specs(k_src, anchor_grid, psis, k_hist):
+        plan.add(tx(spec), m, tr, row, label, group)
+
+
+def w1_runs(section: str, max_pages: int = W1_MAX_PAGES,
+            trace_len: int = W1_TRACE_LEN):
+    """One W1 section's ``run_sweep`` calls as ``[(plan, [(name, data)])]``,
+    built as ``benchmarks/tlb_suite.py``'s bench function for the section
+    builds its plans (``bench_scenarios`` with ``quick=False``,
+    ``bench_dynamic``, ``bench_multitenant``, ``bench_nested``,
+    ``bench_accelerator``), through the port's scenario registry."""
+    from repro_torch.core import baselines as b
+    from repro_torch.scenarios import get_scenario, list_scenarios
+    families, cap = W1_SECTIONS[section]
+    pages = max_pages if cap is None else min(max_pages, cap)
+
+    def world(name):
+        return get_scenario(name).materialize(
+            n_pages=pages, trace_len=trace_len, **W1_SEEDS)
+    names = [sc.name for fam in families for sc in list_scenarios(fam)]
+    runs = []
+    if section in ("scenarios", "dynamic", "accelerator"):
+        plan, worlds = SweepPlan(), []
+        for name in names:
+            d = world(name)
+            if section == "scenarios":
+                add_suite(plan, d.mapping, d.trace, name, ANCHOR_GRID,
+                          psis=(2, 3))
+            elif section == "dynamic":
+                add_suite(plan, d.world, d.trace, name, ANCHOR_GRID,
+                          psis=(2, 3), k_mapping=d.mapping)
+            else:
+                m, tr = d.mapping, d.trace
+                plan.add(b.base_spec(), m, tr, name, "Base")
+                plan.add(b.kaligned_for_histogram(
+                    d.meta["contiguity_histogram"], psi=3, theta=1.0),
+                    m, tr, name, "|K|=3")
+                plan.add(b.subregion_spec(), m, tr, name, "Subregion")
+                plan.add(b.cache_tlb_spec(), m, tr, name, "Cache-TLB")
+                plan.add(b.dead_protect_spec(), m, tr, name, "Dead-Protect")
+            worlds.append((name, d))
+        runs.append((plan, worlds))
+    else:
+        # one run_sweep per world, so that no lane is padded to another
+        # world's segment grid
+        psis, field, policies = (
+            ((2, 3, 4), "ctx_policy", ("flush", "tag"))
+            if section == "multitenant" else
+            ((2, 3), "coh_policy", ("shootdown", "hw-coherence")))
+        for name in names:
+            d = world(name)
+            plan = SweepPlan()
+            for policy in policies:
+                add_suite(plan, d.world, d.trace, f"{name}::{policy}",
+                          ANCHOR_GRID, psis=psis,
+                          k_hist=d.meta["contiguity_histogram"],
+                          transform=lambda s, p=policy: dataclasses.replace(
+                              s, **{field: p}))
+            runs.append((plan, [(name, d)]))
+    return runs
+
+
+def _sha(a) -> str:
+    import numpy as np
+    return hashlib.sha256(
+        np.ascontiguousarray(a, dtype=np.int64).tobytes()).hexdigest()
+
+
+def ppn_digest(ppn) -> str:
+    """SHA-256 of translated ppns as int32 bytes (the fixtures' digest)."""
+    import numpy as np
+    return hashlib.sha256(
+        np.ascontiguousarray(ppn, dtype=np.int32).tobytes()).hexdigest()
+
+
+def world_record(name: str, data) -> dict:
+    """A materialized world's class, the digests of its trace and of every
+    ppn array it holds, and its segment boundaries: the fields of a world
+    in ``tests/data/port_scenario_reference.json``."""
+    w = data.world
+    cls = type(w).__name__
+    rec = dict(scenario=name, cls=cls, n_pages=int(data.mapping.n_pages),
+               trace_sha256=_sha(data.trace))
+    if cls == "DynamicMapping":
+        rec.update(ppn_sha256=[_sha(m.ppn) for m in w.epochs],
+                   boundaries=list(w.boundaries))
+    elif cls == "MultiTenantMapping":
+        rec.update(ppn_sha256=[_sha(m.ppn) for m in w.tenants],
+                   boundaries=list(w.boundaries),
+                   tenant_ids=list(w.tenant_ids), asids=list(w.asids))
+    elif cls == "NestedMapping":
+        segs = w.plan_segments()
+        rec.update(ppn_sha256=[_sha(m.ppn) for g in w.guests
+                               for m in g.epochs],
+                   host_ppn_sha256=[_sha(m.ppn) for m in w.host.epochs],
+                   composed_ppn_sha256=[_sha(s.mapping.ppn) for s in segs],
+                   boundaries=[int(s.lo) for s in segs],
+                   guest_ids=list(w.guest_ids), asids=list(w.asids))
+    else:
+        rec.update(ppn_sha256=[_sha(w.ppn)], boundaries=[0])
+    return rec
+
+
+def world_translations(world, trace):
+    """The ppn each access of ``trace`` must translate to: that of the
+    mapping live at its step (epoch, scheduled tenant or composed view)."""
+    import numpy as np
+    cls = type(world).__name__
+    if cls == "DynamicMapping":
+        views = list(zip(world.boundaries, world.epochs))
+    elif cls == "MultiTenantMapping":
+        views = [(lo, world.tenants[t])
+                 for lo, t in zip(world.boundaries, world.tenant_ids)]
+    elif cls == "NestedMapping":
+        views = [(s.lo, s.mapping) for s in world.plan_segments()]
+    elif cls == "ParityWorld":
+        return world_translations(world.base, trace)
+    else:
+        views = [(0, world)]
+    trace = np.asarray(trace)
+    out = np.empty(trace.shape[0], np.int64)
+    ends = [lo for lo, _ in views[1:]] + [trace.shape[0]]
+    for (lo, m), hi in zip(views, ends):
+        out[lo:hi] = np.asarray(m.ppn)[trace[lo:hi]]
+    return out
+
+
+def section_rows(section: str, cols_by_row: dict) -> list:
+    """The rows the section's bench function returns, from its reduced
+    results ``{row: {label: SimResult}}``: relative misses (walks / Base
+    walks) for every section; invalidated entries on dynamic, multi-tenant
+    and nested worlds; translation stall cycles on nested worlds; cycles
+    per access on the accelerator worlds."""
+    rows = []
+    for row, cols in cols_by_row.items():
+        name, _, policy = row.partition("::")
+        key = dict(scenario=name)
+        if policy:
+            key["policy"] = policy
+        base = cols["Base"].walks
+        rel = {k: round(v.walks / max(base, 1), 4) for k, v in cols.items()}
+        if section == "scenarios":
+            rows.append(dict(key, **rel))
+            continue
+        rows.append(dict(key, metric="rel_misses", **rel))
+        if section in ("dynamic", "multitenant", "nested"):
+            rows.append(dict(key, metric="shootdowns",
+                             **{k: v.shootdowns for k, v in cols.items()}))
+        if section == "nested":
+            rows.append(dict(key, metric="stall_cycles",
+                             **{k: v.cycles for k, v in cols.items()}))
+        if section == "accelerator":
+            rows.append(dict(key, metric="cycles_per_access",
+                             **{k: round(v.cpi, 3) for k, v in cols.items()}))
+    return rows
+
+
+CELL_FIELDS = ("accesses", "l1_hits", "l2_regular_hits", "l2_coalesced_hits",
+               "walks", "aligned_probes", "pred_correct", "cycles",
+               "shootdowns")
+
+
+def check_against_record(r, rec: dict, what: str) -> None:
+    """Hold one ``SimResult`` to a fixture record: name, every counter,
+    ``coverage_mean`` and the ppn digest, tolerance 0; raises
+    ``ValueError`` naming the first field that differs."""
+    if r.name != rec["name"]:
+        raise ValueError(f"{what}: name {r.name!r}, JAX {rec['name']!r}")
+    for f in CELL_FIELDS:
+        if getattr(r, f) != rec[f]:
+            raise ValueError(f"{what}: {f} = {getattr(r, f)}, JAX {rec[f]}")
+    if r.coverage_mean != rec["coverage_mean"]:
+        raise ValueError(f"{what}: coverage_mean {r.coverage_mean}, JAX "
+                         f"{rec['coverage_mean']}")
+    if ppn_digest(r.ppn) != rec["ppn_sha256"]:
+        raise ValueError(f"{what}: ppn digest differs from the JAX one")
+
+
+def w1_roster(max_pages: int = W1_MAX_PAGES, trace_len: int = W1_TRACE_LEN):
+    """Every W1 section's runs, ``{section: [(plan, [(name, data)])]}``,
+    and the roster as the fixture lists it: ``(section, run, row, label,
+    group, spec as a dict)`` per cell, in order."""
+    runs = {s: w1_runs(s, max_pages, trace_len) for s in W1_SECTIONS}
+    roster_ = [(s, i, row, label, group,
+                json.loads(json.dumps(dataclasses.asdict(c.spec))))
+               for s, rs in runs.items() for i, (plan, _) in enumerate(rs)
+               for c, (row, label, group) in zip(plan.cells, plan.tags)]
+    return runs, roster_
+
+
+def w1_phase(ref: dict, dev, sm_mhz: float) -> dict:
+    """W1 on the card: every section built through the port's registry,
+    its worlds held to the fixture's digests, its roster to the fixture's
+    cells; then each section's ``run_sweep(device="cuda", cache=False)``
+    calls, timed on the host clock (ending in a synchronise), with the
+    launch count, the translations, hits + walks and every cell held to
+    the fixture; then every batch of the section re-launched for CUDA
+    events (behind the queued spin) and clock64 cycles per lane.  Raises
+    ``ValueError`` on any difference.  Returns the per-section numbers,
+    the materialized worlds and the TLB kernel's launches over the
+    sweeps."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sweep as sweep_mod
+    from repro_torch.kernels.tlb_sweep.ops import as_tensors, prepare_cuda
+
+    t0 = time.time()
+    runs, roster_ = w1_roster()
+    t_build = time.time() - t0
+    worlds = [(s, name, d) for s, rs in runs.items() for _, ws in rs
+              for name, d in ws]
+    if len(worlds) != len(ref["worlds"]):
+        raise ValueError(f"{len(worlds)} worlds, the fixture has "
+                         f"{len(ref['worlds'])}")
+    for (s, name, d), want in zip(worlds, ref["worlds"]):
+        got = dict(section=s, **world_record(name, d))
+        for k in want:
+            if got.get(k) != want[k]:
+                raise ValueError(f"world {s}/{name}: {k} differs from the "
+                                 "JAX package's (compared before any sweep)")
+    want_roster = [(c["section"], c["run"], c["row"], c["label"], c["group"],
+                    c["spec"]) for c in ref["cells"]]
+    if roster_ != want_roster:
+        raise ValueError("the W1 roster differs from the fixture's cells")
+    print(f"built {len(worlds)} worlds and {len(roster_)} cells in "
+          f"{t_build:.1f} s; every world's trace, ppn arrays and boundaries "
+          "equal the JAX package's (SHA-256)")
+
+    recs = iter(ref["cells"])
+    out, launches = {}, 0
+    for section, rs in runs.items():
+        # pack_batch is wrapped for the section's sweeps to take its host
+        # time and keep each packed batch for the timed launches below
+        packed = []
+        real_pack = sweep_mod.pack_batch
+
+        def timed_pack(sub):
+            t = time.perf_counter()
+            p = real_pack(sub)
+            packed.append((p, time.perf_counter() - t, list(sub)))
+            return p
+        n_batches = sum(len(sweep_mod.batches_of(plan.cells,
+                                                 range(len(plan.cells))))
+                        for plan, _ in rs)
+        torch.cuda.synchronize()
+        reset_counts()
+        sweep_mod.pack_batch = timed_pack
+        try:
+            t1 = time.time()
+            results = [sweep_mod.run_sweep(plan.cells, cache=False,
+                                           device="cuda").results
+                       for plan, _ in rs]
+            torch.cuda.synchronize()
+            wall = time.time() - t1
+        finally:
+            sweep_mod.pack_batch = real_pack
+        counts = launch_counts()
+        if counts["tlb_sweep"] != n_batches:
+            raise ValueError(f"{section}: {counts['tlb_sweep']} TLB kernel "
+                             f"launches for {n_batches} batches")
+        if counts["paged_attention"] or counts["flash_attention"]:
+            raise ValueError(f"{section}: the sweep launched an attention "
+                             "kernel")
+        launches += counts["tlb_sweep"]
+
+        cols, row_of = {}, {}
+        for (plan, ws), res in zip(rs, results):
+            want_ppn = {}
+            for c, (row, label, _), r in zip(plan.cells, plan.tags, res):
+                what = f"{section}/{row}/{label} ({c.spec.name})"
+                key = (id(c.mapping), id(c.trace))
+                if key not in want_ppn:
+                    want_ppn[key] = world_translations(c.mapping, c.trace)
+                if not np.array_equal(r.ppn, want_ppn[key]):
+                    raise ValueError(f"{what}: a translation is not the "
+                                     "world's")
+                if (r.l1_hits + r.l2_regular_hits + r.l2_coalesced_hits
+                        + r.walks != r.accesses):
+                    raise ValueError(f"{what}: hits + walks != accesses")
+                check_against_record(r, next(recs), what)
+                row_of[id(c)] = row
+            for row, c_ in plan.reduce(res).items():
+                cols[row] = c_
+        rows = section_rows(section, cols)
+
+        # timed launches of the section's batches, after the checks
+        t_pack = sum(s for _, s, _ in packed)
+        kernel_ms, host_launch_ms, real_cyc, pad_cyc = 0.0, 0.0, [], []
+        cells_all, rows_all = [], []
+        for (lanes, stacks, st0, sb), _, sub in packed:
+            lt, stt, s0t = as_tensors(lanes, stacks, st0, dev)
+            launch = prepare_cuda(lt, stt, s0t, sb)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            launch()
+            host_launch_ms = max(host_launch_ms,
+                                 (time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            kernel_ms += cuda_time_ms(launch, 3)
+            cyc = launch.cycles.cpu().numpy()
+            real_cyc.append(cyc[:len(sub)])
+            pad_cyc.append(cyc[len(sub):])
+            cells_all += sub
+            rows_all += [row_of[id(c)] for c in sub]
+            del lt, stt, s0t, launch
+        torch.cuda.empty_cache()
+        spread = lane_spread(np.concatenate(real_cyc + pad_cyc), cells_all,
+                             rows_all, sm_mhz)
+        out[section] = dict(
+            wall_s=wall, pack_batch_s=t_pack, kernel_ms=kernel_ms,
+            batches=n_batches, cells=sum(len(r) for r in results),
+            max_host_launch_ms=host_launch_ms, lane_cycles=spread,
+            steps=[int(sb[-1]) for (_, _, _, sb), _, _ in packed],
+            segments=[len(sb) - 1 for (_, _, _, sb), _, _ in packed],
+            rows=rows)
+        print(f"{section}: {out[section]['cells']} cells in {n_batches} "
+              f"batches (T = {out[section]['steps']}, segments "
+              f"{out[section]['segments']}); run_sweep {wall:.3f} s wall, "
+              f"pack_batch {t_pack:.3f} s, kernel {kernel_ms:.3f} ms (CUDA "
+              f"events behind the queued spin, summed over the batches); "
+              f"all cells equal the JAX fixture")
+        print(f"  per-lane cycles (clock64): min {spread['min_cycles']}, "
+              f"median {spread['median_cycles']:.0f}, max "
+              f"{spread['max_cycles']} = {spread['min_ms']:.3f} / "
+              f"{spread['median_ms']:.3f} / {spread['max_ms']:.3f} ms at "
+              f"{sm_mhz:.0f} MHz; slowest lane {spread['slowest_method']} "
+              f"({spread['slowest_kind']}) on {spread['slowest_mapping']}; "
+              f"pad lanes at most {spread['pad_lanes_max_cycles']} cycles; "
+              f"host launch at most {host_launch_ms:.3f} ms")
+        for row in rows:
+            print("  " + json.dumps(row))
+        if host_launch_ms >= SLEEP_CYCLES / (sm_mhz * 1e3):
+            raise ValueError(f"{section}: a launch took the host "
+                             f"{host_launch_ms:.3f} ms, longer than the "
+                             "spin queued before a timing")
+    return dict(sections=out, launches=launches, build_s=t_build,
+                worlds={name: d for _, name, d in worlds})
+
+
+def w2_phase(ref: dict, worlds: dict) -> dict:
+    """W2 on the card: ``standard_suite(device="cuda")`` on the W1
+    ``kv-churn`` world against the fixture's JAX ``standard_suite``
+    (names, counters, coverage, ppn digests), then ``run_method`` on the
+    card for each accelerator kind on ``accel-gather-x1024``: the whole
+    trace against the fixture's W1 cell, the first ``W2_PREFIX`` accesses
+    against the port's own oracle (``run_method_dynamic``).  Raises
+    ``ValueError`` on any difference; returns the launches and times."""
+    import torch
+    from repro_torch.core import baselines as b
+    from repro_torch.core.simulator import run_method, run_method_dynamic
+
+    d = worlds[W2_WORLD]
+    want = ref["standard_suite"]
+    if want["scenario"] != W2_WORLD:
+        raise ValueError("the fixture's standard suite ran on another world")
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    suite = b.standard_suite(d.mapping, d.trace, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    n_suite = launch_counts()["tlb_sweep"]
+    if n_suite != 1:
+        raise ValueError(f"standard_suite launched the TLB kernel "
+                         f"{n_suite} times, not once")
+    if len(suite) != len(want["results"]):
+        raise ValueError(f"standard_suite gave {len(suite)} results, JAX "
+                         f"{len(want['results'])}")
+    for r, rec in zip(suite, want["results"]):
+        check_against_record(r, rec, f"standard_suite {rec['name']}")
+    print(f"standard_suite(device='cuda') on {W2_WORLD}: "
+          f"{len(b.ANCHOR_GRID) + 8} runs in one launch, {wall:.3f} s wall; "
+          "names, counters, coverage and ppn equal the JAX standard_suite: "
+          + ", ".join(f"{r.name} {r.walks}" for r in suite))
+
+    name = "accel-gather-x1024"
+    acc = worlds[name]
+    cells = {(c["row"], c["label"]): c for c in ref["cells"]
+             if c["section"] == "accelerator"}
+    reset_counts()
+    checked = []
+    for spec in (b.subregion_spec(), b.cache_tlb_spec(),
+                 b.dead_protect_spec()):
+        r = run_method(spec, acc.mapping, acc.trace, device="cuda")
+        check_against_record(r, cells[(name, spec.name)],
+                             f"run_method {spec.name} on {name}")
+        pre = acc.trace[:W2_PREFIX]
+        got = run_method(spec, acc.mapping, pre, device="cuda")
+        oracle = run_method_dynamic(spec, acc.mapping, pre)
+        for f in CELL_FIELDS + ("coverage_mean", "name"):
+            if getattr(got, f) != getattr(oracle, f):
+                raise ValueError(f"run_method {spec.name}, first "
+                                 f"{W2_PREFIX} accesses: {f} = "
+                                 f"{getattr(got, f)}, oracle "
+                                 f"{getattr(oracle, f)}")
+        if not (got.ppn == oracle.ppn).all():
+            raise ValueError(f"run_method {spec.name}, first {W2_PREFIX} "
+                             "accesses: ppn differs from the oracle's")
+        checked.append(spec.name)
+    n_method = launch_counts()["tlb_sweep"]
+    if n_method != 2 * len(checked):
+        raise ValueError(f"run_method launched the TLB kernel {n_method} "
+                         f"times for {2 * len(checked)} calls")
+    print(f"run_method(device='cuda') on {name} for {', '.join(checked)}: "
+          f"the whole trace equals the JAX fixture's cell, the first "
+          f"{W2_PREFIX} accesses equal the port's oracle")
+    return dict(launches=n_suite + n_method, suite_wall_s=wall,
+                suite=[(r.name, r.walks) for r in suite])
 
 
 # ---------------------------------------------------------------------------
@@ -1321,7 +1838,7 @@ def main() -> int:
              "script from a checkout of the repository")
     if "jax" in sys.modules:
         fail("the port imported jax")
-    for ref_file in (REF_JSON, SERVE_REF_JSON):
+    for ref_file in (REF_JSON, SERVE_REF_JSON, SCEN_REF_JSON):
         if not os.path.exists(ref_file):
             fail(f"missing the JAX reference fixture {ref_file}")
     dev = torch.device("cuda", 0)
@@ -1373,7 +1890,7 @@ def main() -> int:
                                       mapping=m)
         worlds.append((kind, m, tr))
     cells = [SweepCell(s, m, tr) for kind, m, tr in worlds
-             for s in roster(m, tc)]
+             for s in roster(m)]
     kinds_of = [kind for kind, m, tr in worlds for _ in range(12)]
     print(f"built worlds and {len(cells)} cells in {time.time() - t0:.1f} s")
     ref = json.load(open(REF_JSON))
@@ -1405,19 +1922,10 @@ def main() -> int:
         if (r.l1_hits + r.l2_regular_hits + r.l2_coalesced_hits + r.walks
                 != r.accesses):
             fail(f"{kind}/{r.name}: hits + walks != accesses")
-        for f in ("accesses", "l1_hits", "l2_regular_hits",
-                  "l2_coalesced_hits", "walks", "aligned_probes",
-                  "pred_correct", "cycles", "shootdowns"):
-            if getattr(r, f) != rc[f]:
-                fail(f"{kind}/{r.name}: {f} = {getattr(r, f)}, JAX "
-                     f"reference {rc[f]}")
-        if r.coverage_mean != rc["coverage_mean"]:
-            fail(f"{kind}/{r.name}: coverage_mean differs from the JAX "
-                 "reference")
-        digest = hashlib.sha256(np.ascontiguousarray(
-            r.ppn, dtype=np.int32).tobytes()).hexdigest()
-        if digest != rc["ppn_sha256"]:
-            fail(f"{kind}/{r.name}: ppn digest differs from the JAX reference")
+        try:
+            check_against_record(r, rc, f"{kind}/{r.name}")
+        except ValueError as e:
+            fail(str(e))
         walks.setdefault(kind, {})
         label = rc["label"]
         if label != "Anchor-Static" or label not in walks[kind] \
@@ -1438,7 +1946,7 @@ def main() -> int:
     b = tc.baselines
     accel = [b.subregion_spec(), b.cache_tlb_spec(), b.dead_protect_spec()]
     prefix_cells = [SweepCell(s, m, pre) for kind, m, tr in worlds
-                    for pre in (tr[:PREFIX],) for s in roster(m, tc) + accel]
+                    for pre in (tr[:PREFIX],) for s in roster(m) + accel]
     dyn_cells, mt_cells = small_worlds(tc, SweepCell, np)
     edges = edge_batches(tc, SweepCell, np)
     max_err = 0
@@ -1554,6 +2062,30 @@ def main() -> int:
     del (sweep, cells, worlds, lanes, stacks, st0, lt, stt, s0t, launch,
          plain_batch, pl, ps, p0, prefix_cells, dyn_cells, mt_cells)
     torch.cuda.empty_cache()
+
+    # --------------------------------- W1. scenario sweeps at bench size
+    t0 = phase("W1. the scenario sections of benchmarks/tlb_suite.py at "
+               "bench size through the TLB kernel, vs the JAX fixture")
+    scen_ref = json.load(open(SCEN_REF_JSON))
+    try:
+        w1 = w1_phase(scen_ref, dev, sm_mhz)
+    except ValueError as e:
+        fail(f"W1: {e}")
+    print(f"({time.time() - t0:.1f} s in all)")
+
+    # ------------------------------ W2. the per-call entry points, card
+    t0 = phase("W2. standard_suite and run_method on the card")
+    try:
+        w2 = w2_phase(scen_ref, w1.pop("worlds"))
+    except ValueError as e:
+        fail(f"W2: {e}")
+    print(f"({time.time() - t0:.1f} s in all)")
+    print(f"card: {card}")
+    from repro_torch.scenarios import clear_materialized_cache
+    clear_materialized_cache()
+    tlb["launches_by_path"] = dict(table4=launches["tlb_sweep"],
+                                   w1=w1["launches"], w2=w2["launches"])
+    tlb_out["w1"], tlb_out["w2"] = w1, w2
 
     pa, serve_out, params = serve_phases(torch, np, dev, pa_build, pa_ops)
     fa, flash_out = flash_phases(torch, np, dev, params, fa_build,

@@ -7,10 +7,14 @@ and nothing of the JAX package.  Entry points run on the card
 
 Ported so far: the batched TLB sweep (:func:`repro_torch.core.sweep.
 run_sweep`) with its per-lane kernel written in CUDA C++ for Hopper
-(``kernels/tlb_sweep/csrc/tlb_sweep.cu``), and paged decode serving of
-the dense models (:class:`repro_torch.serve.ServingEngine`) with the
-class-k paged-attention kernel
-(``kernels/paged_attention/csrc/paged_attention.cu``).
+(``kernels/tlb_sweep/csrc/tlb_sweep.cu``), the per-call entry points
+built on it (``run_method``, ``anchor_static``, ``standard_suite``), the
+pure-python segment oracle and the scenario registry
+(:mod:`repro_torch.scenarios`); paged decode serving of the dense models
+(:class:`repro_torch.serve.ServingEngine`) with the class-k
+paged-attention kernel (``kernels/paged_attention/csrc/
+paged_attention.cu``) and prefill through the flash-attention kernel
+(``kernels/flash_attention/csrc/flash_attention.cu``).
 """
 from ._device import resolve_device
 

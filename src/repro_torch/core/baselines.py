@@ -9,17 +9,20 @@ unified engine.  TLB geometries follow Table 2:
 * Cluster: 768-entry 6-way regular + 320-entry 5-way clustered
 * RMM: baseline L2 + 32-entry fully-associative range TLB
 
-``anchor_static`` and ``standard_suite`` of the reference run one method
-per call through its per-call engine, which the port does not have yet;
-build the same roster as :class:`~repro_torch.core.sweep.SweepCell`s.
+``anchor_static`` and ``standard_suite`` return what the reference's do —
+the same results, names and order — but run all their cells as lanes of
+one :func:`~repro_torch.core.sweep.run_sweep` call (one kernel launch on
+the card) where the reference calls its per-call engine once per method.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Iterable, List, Sequence, Tuple
+
+import numpy as np
 
 from .determine_k import determine_k
 from .page_table import Mapping, contiguity_histogram
-from .simulator import SUBR_BITS, MethodSpec
+from .simulator import SUBR_BITS, MethodSpec, SimResult
 
 
 def base_spec() -> MethodSpec:
@@ -104,3 +107,54 @@ def kaligned_for_mapping(m: Mapping, psi: int, theta: float = 0.9,
     return kaligned_for_histogram(contiguity_histogram(m), psi=psi,
                                   theta=theta, use_predictor=use_predictor)
 
+
+ANCHOR_GRID: Tuple[int, ...] = (2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
+
+
+def _run_specs(specs: Sequence[MethodSpec], m: Mapping, trace: np.ndarray,
+               device) -> List[SimResult]:
+    """Every spec over ``(m, trace)`` in one cache-less ``run_sweep``."""
+    from .sweep import SweepCell, run_sweep   # sweep builds on the kernels
+    trace = np.asarray(trace)
+    cells = [SweepCell(s, m, trace) for s in specs]
+    return run_sweep(cells, cache=False, device=device).results
+
+
+def _best_anchor(results: Sequence[SimResult], grid: Sequence[int]
+                 ) -> SimResult:
+    """The reference's tie rule: the first ``d`` with the fewest walks."""
+    best: SimResult | None = None
+    for d, r in zip(grid, results):
+        if best is None or r.walks < best.walks:
+            best = r
+            best.name = f"Anchor-Static(best d=2^{d})"
+    assert best is not None
+    return best
+
+
+def anchor_static(m: Mapping, trace: np.ndarray,
+                  grid: Iterable[int] = ANCHOR_GRID, *,
+                  device="cuda") -> SimResult:
+    """Anchor-Static: exhaustively try all anchor distances, keep the best
+    (paper §4.1: 'ends up with the optimal performance').  The whole grid
+    runs as one sweep, on the card unless ``device="cpu"``."""
+    grid = tuple(grid)
+    return _best_anchor(_run_specs([anchor_spec(d) for d in grid], m, trace,
+                                   device), grid)
+
+
+def standard_suite(m: Mapping, trace: np.ndarray,
+                   psis: Sequence[int] = (2, 3, 4),
+                   anchor_grid: Iterable[int] = ANCHOR_GRID, *,
+                   device="cuda") -> List[SimResult]:
+    """The paper's full comparison (Figs 1/8, Table 4): Base, THP, RMM, COLT,
+    Cluster, Anchor-Static, |K|=2/3/4 Aligned — every cell, the anchor grid
+    included, as one sweep, on the card unless ``device="cpu"``."""
+    grid = tuple(anchor_grid)
+    fixed = [base_spec(), thp_spec(), rmm_spec(), colt_spec(), cluster_spec()]
+    aligned = [kaligned_for_mapping(m, psi=psi) for psi in psis]
+    res = _run_specs(fixed + [anchor_spec(d) for d in grid] + aligned, m,
+                     trace, device)
+    n = len(fixed)
+    return (res[:n] + [_best_anchor(res[n:n + len(grid)], grid)]
+            + res[n + len(grid):])

@@ -12,8 +12,8 @@ It exists so the same policy code drives two consumers:
 * :class:`repro_torch.serve.engine.ServingEngine` — real decode: the
   engine keeps token state and kernels, the scheduler keeps
   queues/slots/pages;
-* the JAX package's scenario recorder (``scenarios/workload.py``, not
-  ported yet): the KV-churn scenarios replay admission/extend/preempt/free
+* :mod:`repro_torch.scenarios.workload` — scenario recording: the
+  KV-churn scenarios replay admission/extend/preempt/free
   cycles against the buddy allocator to harvest mixed-contiguity block
   tables and access traces without instantiating a model.
 

@@ -161,6 +161,194 @@ WORLDS = ("static", "dynamic", "multitenant", "nested", "parity")
 
 
 # ---------------------------------------------------------------------------
+# Fuzzed worlds (the twin of tests/test_fuzz_differential.py)
+# ---------------------------------------------------------------------------
+
+#: the world kinds of the fuzz twin: the segmented ones
+FUZZ_KINDS = ("dynamic", "multitenant", "nested")
+#: the policies each fuzzed world kind is swept under
+FUZZ_POLICIES = {
+    "dynamic": [dict(coh_policy=c) for c in ("shootdown", "hw-coherence")],
+    "multitenant": [dict(ctx_policy=c) for c in ("flush", "tag")],
+    "nested": [dict(ctx_policy=x, coh_policy=c) for x in ("flush", "tag")
+               for c in ("shootdown", "hw-coherence")]}
+
+
+def _mapped_trace(m, n, rng):
+    """``n`` random mapped vpns of ``m``; None if nothing is mapped."""
+    mv = np.flatnonzero(np.asarray(m.ppn) >= 0)
+    if mv.size == 0:
+        return None
+    return mv[rng.integers(0, mv.size, n)].astype(np.int64)
+
+
+def fuzz_world(p, world_kind: str, seed: int):
+    """``tests/test_fuzz_differential.py::_gen_world`` over either package
+    ``p`` (see :func:`pkg`): a deterministic (world, trace) from one seed,
+    None if degenerate."""
+    pt = p.page_table
+    demand_mapping = p.mappings.demand_mapping
+    MappingEvent, make_mapping = pt.MappingEvent, pt.make_mapping
+    build_dynamic_mapping = pt.build_dynamic_mapping
+    build_multitenant_mapping = pt.build_multitenant_mapping
+    build_nested_mapping = pt.build_nested_mapping
+    rng = np.random.default_rng(seed)
+    n = 512
+    if world_kind == "static":
+        m = demand_mapping(n, seed=seed % 997)
+        trace = _mapped_trace(m, 260, rng)
+        return (m, trace) if trace is not None else None
+
+    if world_kind == "dynamic":
+        m0 = demand_mapping(n, seed=seed % 991)
+        fresh = int(m0.ppn.max()) + 2
+        ppn = m0.ppn
+        schedule = []
+        for e in (1, 2):
+            evs = []
+            for _ in range(int(rng.integers(1, 3))):
+                kind = str(rng.choice(["remap", "unmap", "map", "compact"]))
+                start = int(rng.integers(0, n - 64))
+                ln = int(rng.integers(1, 48))
+                if kind == "unmap":
+                    evs.append(MappingEvent("unmap", start, ln))
+                else:
+                    evs.append(MappingEvent(kind, start, ln, ppn=fresh))
+                    fresh += ln + 1
+            schedule.append((e * 90, evs))
+        dyn = build_dynamic_mapping(m0.ppn, schedule, name=f"fz{seed}")
+        parts = []
+        bounds = list(dyn.boundaries) + [300]
+        for e in range(dyn.n_epochs):
+            p = _mapped_trace(dyn.epochs[e], bounds[e + 1] - bounds[e], rng)
+            if p is None:
+                return None
+            parts.append(p)
+        return dyn, np.concatenate(parts)
+
+    if world_kind == "nested":
+        # nested: 1-2 guests, each optionally with its own event stream,
+        # composed over a host layer with its own random event stream; the
+        # VM schedule draws ASIDs from a pool smaller than the guest count
+        n_g = int(rng.integers(1, 3))
+        guests, fresh = [], 0
+        for i in range(n_g):
+            g0 = demand_mapping(n, seed=(seed + 3 * i) % 971)
+            fresh = max(fresh, int(g0.ppn.max()) + 2)
+            if rng.integers(0, 2):
+                evs = []
+                for _ in range(int(rng.integers(1, 3))):
+                    kind = str(rng.choice(["remap", "unmap", "map",
+                                           "compact"]))
+                    start = int(rng.integers(0, n - 64))
+                    ln = int(rng.integers(1, 32))
+                    if kind == "unmap":
+                        evs.append(MappingEvent("unmap", start, ln))
+                    else:
+                        evs.append(MappingEvent(kind, start, ln, ppn=fresh))
+                        fresh += ln + 1
+                guests.append(build_dynamic_mapping(
+                    g0.ppn, [(int(rng.integers(60, 200)), evs)],
+                    name=f"fzg{seed}_{i}"))
+            else:
+                guests.append(g0)
+        hsize = fresh + 8            # host covers every guest PPN
+        h_evs, hfresh = [], hsize
+        for _ in range(int(rng.integers(1, 3))):
+            kind = str(rng.choice(["remap", "unmap", "compact"]))
+            start = int(rng.integers(0, hsize - 64))
+            ln = int(rng.integers(1, 64))
+            if kind == "unmap":
+                h_evs.append(MappingEvent("unmap", start, ln))
+            else:
+                h_evs.append(MappingEvent(kind, start, ln, ppn=hfresh))
+                hfresh += ln + 1
+        host = build_dynamic_mapping(
+            np.arange(hsize, dtype=np.int64),
+            [(int(rng.integers(80, 240)), h_evs)], name=f"fzh{seed}")
+        sched, t = [], 0
+        for _ in range(int(rng.integers(2, 5))):
+            gid = int(rng.integers(0, n_g))
+            if sched and sched[-1][1] == gid:
+                asid = sched[-1][2]  # a resident VM keeps its vCPU ASID
+            else:
+                asid = int(rng.integers(0, max(n_g - 1, 1)))
+            sched.append((t, gid, asid))
+            t += 70
+        world = build_nested_mapping(guests, host, sched, name=f"fzn{seed}")
+        segs = world.plan_segments()
+        total = max(sg.lo for sg in segs) + 90
+        bounds = [sg.lo for sg in segs] + [total]
+        parts = []
+        for s, sg in enumerate(segs):
+            p = _mapped_trace(sg.mapping, bounds[s + 1] - bounds[s], rng)
+            if p is None:
+                return None          # a host unmap emptied a composed view
+            parts.append(p)
+        return world, np.concatenate(parts)
+
+    # multitenant: 2-3 tenants, 5-7 segments, ASIDs drawn from a pool
+    # SMALLER than the tenant count so recycling happens organically
+    n_ten = int(rng.integers(2, 4))
+    tenants = []
+    for i in range(n_ten):
+        style = int(rng.integers(0, 3))
+        if style == 0:
+            tenants.append(demand_mapping(n, seed=(seed + i) % 983))
+        elif style == 1:
+            tenants.append(make_mapping(
+                np.arange(n, dtype=np.int64) + int(rng.integers(1, 100)),
+                name=f"contig{i}"))
+        else:
+            tenants.append(demand_mapping(n, seed=(seed + i) % 977,
+                                          thp=True))
+    n_seg = int(rng.integers(5, 8))
+    q = 40
+    schedule = []
+    for s in range(n_seg):
+        tid = int(rng.integers(0, n_ten))
+        if schedule and schedule[-1][1] == tid:
+            # a resident tenant keeps its ASID (constructor invariant)
+            asid = schedule[-1][2]
+        else:
+            asid = int(rng.integers(0, max(n_ten - 1, 1)))
+        schedule.append((s * q, tid, asid))
+    mt = build_multitenant_mapping(tenants, schedule, name=f"fzmt{seed}")
+    total = n_seg * q + 20
+    bounds = list(mt.boundaries) + [total]
+    parts = []
+    for s in range(mt.n_segments):
+        m = mt.tenants[mt.tenant_ids[s]]
+        p = _mapped_trace(m, bounds[s + 1] - bounds[s], rng)
+        if p is None:
+            return None
+        parts.append(p)
+    return mt, np.concatenate(parts)
+
+
+def fuzz_cells(p, world_kind: str, seed: int):
+    """Every kind (``all_kinds``) under every policy of the world kind, as
+    ``SweepCell``s over ``fuzz_world(p, world_kind, seed)``; [] if the
+    draw is degenerate."""
+    gen = fuzz_world(p, world_kind, seed)
+    if gen is None:
+        return []
+    world, trace = gen
+    return [p.sweep.SweepCell(dataclasses.replace(s, **pol), world, trace)
+            for pol in FUZZ_POLICIES[world_kind] for s in all_kinds(p)]
+
+
+def oracle(sim, cell):
+    """The pure-python oracle of simulator module ``sim`` for one cell."""
+    kind = type(cell.mapping).__name__
+    run = {"NestedMapping": sim.run_method_nested,
+           "MultiTenantMapping": sim.run_method_multitenant,
+           "ParityWorld": sim.run_method_parity}.get(
+               kind, sim.run_method_dynamic)       # static and dynamic
+    return run(cell.spec, cell.mapping, cell.trace)
+
+
+# ---------------------------------------------------------------------------
 # Paged attention cases
 # ---------------------------------------------------------------------------
 

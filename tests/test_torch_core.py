@@ -541,7 +541,8 @@ def test_resolve_device():
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core, "
-            "repro_torch.kernels.tlb_sweep.ops; "
+            "repro_torch.kernels.tlb_sweep.ops, repro_torch.scenarios, "
+            "repro_torch.core.sweep; "
             "assert 'jax' not in sys.modules; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'imported the JAX package'")

@@ -11,7 +11,9 @@ The TLB-sweep kernel must equal the plain version bit for bit — counters,
 coverage samples and the whole ``[L, T]`` ppn array — on static, dynamic,
 multi-tenant, nested and parity-fault batches covering all 10 method kinds
 and every policy knob and on ``chip_smoke.edge_batches``, count one launch
-per batch, report every lane's cycles, and refuse L2s wider than a warp.  The
+per batch, report every lane's cycles, and refuse L2s wider than a warp;
+``run_sweep``, ``run_method`` and ``standard_suite`` on the card launch it
+and equal the oracle and the CPU on the fuzz twin's random worlds.  The
 paged-attention kernels must equal their plain version per class pass
 (o, m, l) and merged, f32 within 5e-5 and bf16 within 2e-2, at any split
 of a row's windows over blocks, keep the -1e30 semantics of wholly masked
@@ -155,6 +157,54 @@ def test_kernel_rejects_out_of_range_trace(cuda):
     lt, stt, s0t = as_tensors(lanes, stacks, st0, cuda)
     with pytest.raises(ValueError, match="trace vpn"):
         run_lanes(lt, stt, s0t, sb)
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("world_kind", ("dynamic", "multitenant", "nested"))
+def test_fuzz_twin_kernel_leg_equals_the_oracle(cuda, world_kind, seed):
+    """The kernel leg of the fuzz twin (``tests/test_torch_oracle.py``):
+    random segmented worlds, every kind under every policy of the world
+    kind, ``run_sweep`` on the card equal to the port's oracle."""
+    from _torch_helpers import fuzz_cells, oracle
+    from repro_torch.core import simulator as tsim
+    cells = fuzz_cells(P, world_kind, seed)
+    if not cells:
+        return                       # degenerate draw: nothing mapped
+    n0 = LAUNCHES["tlb_sweep"]
+    got = run_sweep(cells, cache=False, device="cuda")
+    assert LAUNCHES["tlb_sweep"] == n0 + got.stats["n_batches"]
+    for c, r in zip(cells, got):
+        want = oracle(tsim, c)
+        for f in ("accesses", "l1_hits", "l2_regular_hits",
+                  "l2_coalesced_hits", "walks", "aligned_probes",
+                  "pred_correct", "cycles", "coverage_mean", "shootdowns",
+                  "name"):
+            assert getattr(r, f) == getattr(want, f), (c.spec, f)
+        np.testing.assert_array_equal(r.ppn, want.ppn)
+
+
+def test_run_method_and_standard_suite_launch_the_kernel(cuda):
+    """``run_method`` and ``standard_suite`` on ``"cuda"`` each launch the
+    TLB kernel once (the suite's 18 runs are one batch) and equal their
+    CPU runs."""
+    m = tcore.demand_mapping(1 << 12, seed=3)
+    tr = tcore.generate_trace("multiscale", 0, 600, seed=4, mapping=m)
+    for spec in (tcore.kaligned_spec([9, 6, 4]),
+                 P.baselines.cache_tlb_spec()):
+        n0 = LAUNCHES["tlb_sweep"]
+        r = tcore.run_method(spec, m, tr, device="cuda")
+        assert LAUNCHES["tlb_sweep"] == n0 + 1
+        want = tcore.run_method(spec, m, tr, device="cpu")
+        assert LAUNCHES["tlb_sweep"] == n0 + 1
+        assert (r.name, r.walks, r.cycles) == (want.name, want.walks,
+                                               want.cycles)
+        np.testing.assert_array_equal(r.ppn, want.ppn)
+    n0 = LAUNCHES["tlb_sweep"]
+    suite = tcore.standard_suite(m, tr, device="cuda")
+    assert LAUNCHES["tlb_sweep"] == n0 + 1
+    want = tcore.standard_suite(m, tr, device="cpu")
+    assert [(r.name, r.walks, r.cycles, r.coverage_mean) for r in suite] == \
+        [(r.name, r.walks, r.cycles, r.coverage_mean) for r in want]
 
 
 # ---------------------------------------------------------------------------

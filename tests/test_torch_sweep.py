@@ -9,8 +9,9 @@ world (both context-switch policies), a nested world (both coherence
 policies) and a parity-fault world (both fault policies).  Each cell is
 its own test case.  Also: the card is never replaced by the CPU, the
 port's cache never shares an entry with the JAX package's, and the
-full-size Table 4 fixture ``chip_smoke.py`` holds the kernel to is the
-JAX package's output for the roster the port builds.
+full-size fixtures ``chip_smoke.py`` holds the kernel to (Table 4, and the
+scenario sections of W1 and W2) are the JAX package's output for the
+rosters and worlds the port builds.
 """
 import dataclasses
 import importlib.util
@@ -131,7 +132,7 @@ def test_table4_fixture_matches_the_port_roster():
     specs = []
     for kind in cs.KINDS:
         m = tcore.synthetic_mapping(kind, cs.N_PAGES, seed=1)
-        specs += [(kind, s) for s in cs.roster(m, tcore)]
+        specs += [(kind, s) for s in cs.roster(m)]
     assert len(specs) == len(ref["cells"]) == 48
     for (kind, s), row in zip(specs, ref["cells"]):
         assert row["mapping"] == kind and row["name"] == s.name
@@ -259,3 +260,48 @@ def test_table4_fixture_regenerates():
     spec.loader.exec_module(mod)
     fresh, _ = mod.reference()
     assert json.loads(json.dumps(fresh)) == json.loads(REF_JSON.read_text())
+
+
+SCEN_JSON = REPO / "tests" / "data" / "port_scenario_reference.json"
+
+
+def test_scenario_fixture_matches_the_port_roster():
+    """The 274 cells ``chip_smoke.py`` W1 builds at bench size through the
+    port's registry are, in order, the cells the scenario fixture records
+    (section, ``run_sweep`` call, row, label, group, spec), its 20 worlds
+    are the fixture's, and every fixture cell adds up."""
+    cs = _chip_smoke()
+    ref = json.loads(SCEN_JSON.read_text())
+    assert (ref["max_pages"], ref["trace_len"]) == (cs.W1_MAX_PAGES,
+                                                    cs.W1_TRACE_LEN)
+    assert ref["seeds"] == cs.W1_SEEDS
+    assert ref["anchor_grid"] == list(cs.ANCHOR_GRID)
+    assert ref["sections"] == list(cs.W1_SECTIONS)
+    runs, roster = cs.w1_roster()
+    assert len(roster) == len(ref["cells"]) == 274
+    assert roster == [(c["section"], c["run"], c["row"], c["label"],
+                       c["group"], c["spec"]) for c in ref["cells"]]
+    worlds = [dict(section=s, **cs.world_record(name, d))
+              for s, rs in runs.items() for _, ws in rs for name, d in ws]
+    assert worlds == ref["worlds"]
+    for c in ref["cells"]:
+        assert (c["l1_hits"] + c["l2_regular_hits"] + c["l2_coalesced_hits"]
+                + c["walks"]) == c["accesses"] == cs.W1_TRACE_LEN
+    suite = ref["standard_suite"]
+    assert suite["scenario"] == cs.W2_WORLD
+    assert len(suite["results"]) == 9
+    from repro_torch.scenarios import clear_materialized_cache
+    clear_materialized_cache()
+
+
+@pytest.mark.slow
+def test_scenario_fixture_regenerates():
+    """The JAX package still produces the committed scenario fixture
+    (about five minutes of JAX on the CPU)."""
+    spec = importlib.util.spec_from_file_location(
+        "make_port_scenario_reference",
+        REPO / "scripts" / "make_port_scenario_reference.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    fresh, _ = mod.reference()
+    assert json.loads(json.dumps(fresh)) == json.loads(SCEN_JSON.read_text())
