@@ -13,9 +13,16 @@ The port has three main paths, each through its hand-written CUDA kernel:
   a split kernel over each row's windows, then a combine kernel, from one
   wrapper call) once per layer and alignment class;
 * prefill, ``Model.prefill`` (which the engine calls for every admitted
-  request), whose every layer is one launch of the flash-attention kernel
+  request), whose every attention layer is one launch of the
+  flash-attention kernel
   (``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``:
-  the tensor-core kernel in bf16, the FMA kernel in f32).
+  the tensor-core kernel in bf16, the FMA kernel in f32), and
+  ``Model.prefill_chunked``, one launch a chunk at the chunk's query
+  offset.
+
+The MoE, Mamba-hybrid and xLSTM families run the same two attention
+kernels at their attention positions (none in the xLSTM); their MoE
+dispatch and recurrences are plain torch.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  Phases, each fatal on failure:
@@ -148,9 +155,48 @@ F4. timing of one InternLM2-1.8B layer's kernel at S = 3,072 and 32,768
     ``scaled_dot_product_attention`` call on the same q and K/V repeated to
     16 heads (the library yardstick, repeat excluded), the plain version by
     CUDA events, and the bound;
+C1. the flash-attention kernel at a query offset (the later chunks of a
+    chunked prefill: q's rows ``off ..``, k and v's first ``off + Sc``)
+    against its plain version, every chunk of ``tests/test_kernels.py``'s
+    four shapes and of an InternLM2-1.8B layer at 3,072 and 32,704 tokens
+    cut in 4, f32 and bf16, with F1's tolerances; ``q_offset=0`` must give
+    the default call's bits and every causal chunk the whole call's rows
+    bit for bit; the last chunk of the 32,704 (offset 24,528) timed by
+    CUDA events behind the queued spin, beside its plain version,
+    ``scaled_dot_product_attention`` with an explicit causal mask at the
+    offset, and its bound;
+C2. ``Model.prefill_chunked`` of F3's 32,704-token prompt in 4 chunks at
+    full width (bf16, InternLM2-1.8B) against ``Model.prefill``: the last
+    position's top-1 where the top-2 gap exceeds ``DENSE_MARGIN``, every
+    logit within ``C2_LOGIT_ATOL``, the KV cache within ``C2_KV_RTOL``;
+    96 flash launches;
+M1. the reduced ``qwen2-moe-a2.7b``, ``jamba-1.5-large-398b`` and
+    ``xlstm-350m`` served on the card in f32 (TF32 off) against the JAX
+    engine's ``tests/data/port_family_reference.json`` as S2 is held to its
+    fixture, the weights checked against its digests; the flash kernel
+    launched once per attention layer and prefill, the paged kernel only
+    where the model has attention;
+M2. Qwen1.5-MoE-A2.7B at full width (24 layers, d_model 2048, 60 routed
+    experts top-4 plus 4 shared, vocab 151,936, 14.3 B parameters), its
+    weights drawn by the streaming initialiser into bf16 on the card, S3's
+    first 8 requests with answers capped at 32 tokens through S3's engine
+    configuration: every request finishes, 24 flash launches a prefill, a
+    paged class k >= 1, coalesced descriptors, one decode step's class
+    passes against their plain version, a profile of one decode step,
+    peak memory; then a second, untimed engine run with the same tokens
+    that records its routings, and every token against the dense-cache
+    decode (``dense_check`` of a ``yardstick``: batched as the engine ran,
+    f32 softmax weights, the engine's experts replayed);
+M3. xLSTM-350M at full width (24 layers, d_model 1024, sLSTM every 6th)
+    in bf16 with M2's requests: no pool, no flash or paged launch, every
+    token against the dense-cache decode as in M2; then in f32 (TF32 off)
+    through the engine, each request decoded alone by the dense decode,
+    every token equal past a 2e-3 margin;
 5. the kernel line (the TLB kernel's ``launches`` are phase 2's, its
-   ``launches_by_path`` also W1's and W2's), the card line, and the
-   ``{"ok": true, ...}`` line.
+   ``launches_by_path`` also W1's and W2's; the attention kernels'
+   ``launches_by_path`` also C1's comparisons, C2's and M1-M3's; the flash
+   line's ``at_q_offset`` C1's timing), the card line, and the ``{"ok":
+   true, ...}`` line.
 
 It exits non-zero, printing no result, without a card or outside a
 checkout of the repository.  The serving helpers below also run on the
@@ -159,6 +205,7 @@ CPU (``tests/test_torch_serve.py`` drives them there).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -267,6 +314,34 @@ FLASH_LENS = (3072, 32768)
 # 2,112 pages hold its 2,045 with the buddy allocator's slack
 F3_ENGINE = dict(page_size=16, num_pages=2112, max_batch=1, max_seq=32768)
 F3_PROMPT, F3_NEW, F3_SEED = 32704, 16, 13
+
+# -------------------------------------------------- chunked prefill, C1-C2
+# chunks of C1's and C2's chunked prefills (Sarathi-style, as the JAX
+# package's tests/test_models.py splits its prompts)
+C_CHUNKS = 4
+# C1 at InternLM2-1.8B's layer: S3's longest prompt (chunks of 768) and
+# F3's (chunks of 8,176)
+C1_LENS = (3072, F3_PROMPT)
+# C2, chunked vs whole prefill of F3's prompt, bf16: both run the same
+# bf16 products; only the flash kernel's f32 sums over a row's keys take
+# another tile order, which can move an attention output by one bf16 ulp
+# and, through 24 layers of a bf16 residual stream, a logit by a few ulps
+# (1/32 at magnitude 4-8).  Logits: within C2_LOGIT_ATOL (DENSE_MARGIN, the
+# margin the dense-decode checks allow a token); the KV cache: within
+# C2_KV_RTOL * |whole| + C2_KV_ATOL * rms (four bf16 ulps, and 1/32 of the
+# cache's rms for values near 0).
+C2_LOGIT_ATOL = DENSE_MARGIN
+C2_KV_RTOL, C2_KV_ATOL = 2.0 ** -6, 2.0 ** -5
+
+# ------------------------------------------- MoE, hybrid and xLSTM, M1-M3
+FAMILY_REF_JSON = os.path.join(HERE, "tests", "data",
+                               "port_family_reference.json")
+# M2: Qwen1.5-MoE-A2.7B (hf:Qwen/Qwen1.5-MoE-A2.7B) at full width, bf16
+# weights; M3: xLSTM-350M (arXiv:2405.04517) at full width, bf16.  Both
+# serve S3's first 8 requests with their answers capped (a cut of the
+# trace's answer lengths, to keep the phase short)
+M2_ARCH, M3_ARCH = "qwen2-moe-a2.7b", "xlstm-350m"
+M_REQUESTS, M_ANSWER_CAP = 8, 32
 
 
 def fail(msg: str) -> None:
@@ -1087,15 +1162,18 @@ def load_weights(model, ref, device):
 
 
 def serve_against_fixture(ref, device, params=None):
-    """Phase S2: the port's engine in f32 over the fixture's requests, held
-    to the JAX engine's tokens, logits, classes and descriptor counts.
-    Returns what it measured; raises ``ValueError`` on a difference."""
+    """Phases S2 and M1: the port's engine in f32 over the fixture's
+    requests (one model's record: its arch, reduced or not, and its
+    ``RunConfig``), held to the JAX engine's tokens, logits, classes and
+    descriptor counts.  Returns what it measured; raises ``ValueError`` on
+    a difference."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import Model, RunConfig
     from repro_torch.serve import EngineConfig, ServingEngine
-    model = Model(get_config(ref["arch"]),
-                  RunConfig(compute_dtype=ref["compute_dtype"]))
+    model = Model(get_config(ref["arch"], reduced=ref.get("reduced", False)),
+                  RunConfig(**ref.get("run_config", dict(
+                      compute_dtype=ref["compute_dtype"]))))
     if params is None:
         params = load_weights(model, ref, device)
     eng = ServingEngine(model, params, EngineConfig(**ref["engine"]),
@@ -1152,43 +1230,166 @@ def serve_against_fixture(ref, device, params=None):
                 wall_s=wall, params=params)
 
 
-def dense_check(model, params, reqs, device, margin):
+class RouteTape:
+    """The MoE routings of an engine run, for M2's dense check: while a
+    :func:`yardstick` model holding the tape serves, every decode-time
+    MoE FFN (S == 1) records the experts it picks; with ``replay`` set,
+    the dense decode gets them back call by call, its gates taken from its
+    own probabilities at those experts.  ``flips`` counts the replayed
+    rows whose own top-k differed from the recorded one (of
+    ``decisions``)."""
+
+    def __init__(self):
+        self.ids, self.pos, self.flips, self.decisions = [], 0, 0, 0
+        self.replay = False
+
+    def experts(self, cfg, rc, p, h):
+        """The MoE FFN of ``h`` [B, 1, d], its routing recorded or
+        replayed."""
+        import torch
+        from repro_torch.models import moe
+        probs = moe.router_probs(p, h)
+        gates, ids = moe.route(probs, cfg.top_k)
+        if not self.replay:
+            self.ids.append(ids.clone())
+        else:
+            want = self.ids[self.pos]
+            self.pos += 1
+            self.decisions += ids.shape[0]
+            self.flips += int((ids.sort(-1).values != want.sort(-1).values)
+                              .any(-1).sum())
+            gates = torch.gather(probs, -1, want)
+            gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+            ids = want
+        return moe.moe_experts(cfg, rc, p, h, probs, gates, ids)[0]
+
+
+def yardstick(model, tape=None):
+    """``model`` as M2's and M3's dense check decodes: its
+    ``decode_step`` keeps the softmax weights in f32, as the paged kernel
+    keeps them (``Model.decode_step`` rounds them to bf16 before ``p @
+    v``, as the JAX package does; in an MoE model that alone can move a
+    router logit across a tie), and, given a :class:`RouteTape`, every
+    decode-time MoE FFN records or replays its routing.  Prefill is the
+    model's own."""
+    import math
+    import torch
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+
+    def attention_p_f32(q, kc, vc, kv_len):
+        B, _, H, D = q.shape
+        S, KVH = kc.shape[1], kc.shape[2]
+        s = torch.einsum("bcgd,bscd->bcgs",
+                         q.reshape(B, KVH, H // KVH, D).float(),
+                         kc.float()) * (1.0 / math.sqrt(D))
+        live = torch.arange(S, device=q.device)[None, :] < kv_len[:, None]
+        p = torch.softmax(torch.where(live[:, None, None, :], s, L.NEG_INF),
+                          dim=-1)
+        o = torch.einsum("bcgs,bscd->bcgd", p, vc.float())
+        return o.reshape(B, 1, H, D).to(q.dtype)
+
+    class Yardstick(type(model)):
+        @torch.no_grad()
+        def decode_step(self, params, state, tokens, kv_len):
+            B = tokens.shape[0]
+            kv_len = torch.as_tensor(kv_len, device=tokens.device).long()
+            bidx = torch.arange(B, device=tokens.device)
+
+            def attend(i, p, st, h):
+                q, k, v = L.attention_qkv(cfg, p, h, kv_len[:, None])
+                kc, vc = st["k"][i], st["v"][i]
+                kc[bidx, kv_len] = k[:, 0].to(kc.dtype)
+                vc[bidx, kv_len] = v[:, 0].to(vc.dtype)
+                o = attention_p_f32(q, kc.to(q.dtype), vc.to(q.dtype),
+                                    kv_len + 1)
+                return o.reshape(B, 1, cfg.q_dim) @ p["wo"]
+
+            x = self._layers(params, self._embed(params, tokens), state,
+                             attend)
+            return self._head(params, x), state
+
+        def _ffn(self, j, p, x):
+            if tape is None or "moe" not in p or x.shape[1] != 1:
+                return super()._ffn(j, p, x)
+            return x + tape.experts(cfg, self.rc, p["moe"],
+                                    L.rms_norm(x, p["ln2"], cfg.rms_eps))
+
+    return Yardstick(cfg, model.rc)
+
+
+def dense_check(model, params, reqs, device, margin, batched=False):
     """Each request's generated tokens against the dense-cache decode
-    (``Model.prefill`` + ``Model.decode_step``), teacher-forced on the
+    (``model.prefill`` + ``model.decode_step``), teacher-forced on the
     engine's own tokens so that one near-tie cannot cascade.  A token may
     differ from the dense argmax only where the dense logits put it within
-    ``margin`` of their top-1.  Returns the counts; raises ``ValueError``
-    on a token outside the margin."""
-    import torch
+    ``margin`` of their top-1.
+
+    Each request decodes alone unless ``batched``: then all of them decode
+    in one batch, in lockstep, each row continuing its own prefill (the
+    engine's batch, where every request was admitted at once), so that the
+    dense decode's products have the engine's shapes — bf16 products at
+    batch 1 and batch 8 round differently, which a recurrent model's state
+    carries from step to step.  ``model`` may be a :func:`yardstick`.
+    Returns the counts; raises ``ValueError`` on a token outside the
+    margin."""
     params = model.compute_params(params)
     vocab = model.cfg.vocab
     out = dict(checked=0, equal=0, max_gap=0.0)
-    for req in reqs:
-        prompt, gen = list(req.prompt), list(req.generated)
-        S = len(prompt)
-        logits, st = model.prefill(
-            params, torch.tensor([prompt], device=device),
-            max_seq=S + len(gen))
-        rows = [logits[0, S - 1]]
-        for i in range(1, len(gen)):
-            logits, st = model.decode_step(
-                params, st, torch.tensor([[gen[i - 1]]], device=device),
-                torch.tensor([S + i - 1], device=device))
-            rows.append(logits[0, 0])
-        for i, row in enumerate(rows):
-            row = row[:vocab].float()
-            best = int(row.argmax())
-            out["checked"] += 1
-            if best == gen[i]:
-                out["equal"] += 1
-                continue
-            gap = float(row[best] - row[gen[i]])
-            out["max_gap"] = max(out["max_gap"], gap)
-            if gap > margin:
-                raise ValueError(
-                    f"request {req.req_id}: token {i} is {gen[i]}, the dense "
-                    f"decode's is {best}, ahead by {gap:.4g} > {margin}")
+    for group in ([list(reqs)] if batched else [[r] for r in reqs]):
+        for req, rows in zip(group, _dense_rows(model, params, group,
+                                                device)):
+            gen = req.generated
+            for i, row in enumerate(rows):
+                row = row[:vocab].float()
+                best = int(row.argmax())
+                out["checked"] += 1
+                if best == gen[i]:
+                    out["equal"] += 1
+                    continue
+                gap = float(row[best] - row[gen[i]])
+                out["max_gap"] = max(out["max_gap"], gap)
+                if gap > margin:
+                    raise ValueError(
+                        f"request {req.req_id}: token {i} is {gen[i]}, the "
+                        f"dense decode's is {best}, ahead by {gap:.4g} > "
+                        f"{margin}")
     return out
+
+
+def _dense_rows(model, params, reqs, device):
+    """The dense decode's logit row behind every generated token of each of
+    ``reqs``: each prompt prefilled alone, then all rows decoded together,
+    teacher-forced on the engine's tokens (a row past its last token keeps
+    decoding its last one, which is not compared)."""
+    import torch
+    from repro_torch.models.model import init_decode_state
+    B = len(reqs)
+    lens = [len(r.prompt) for r in reqs]
+    n_gen = [len(r.generated) for r in reqs]
+    max_seq = max(S + n for S, n in zip(lens, n_gen))
+    state = init_decode_state(model.cfg, B, max_seq, model.cdt, device)
+    rows = [[] for _ in reqs]
+    for b, req in enumerate(reqs):
+        logits, st = model.prefill(
+            params, torch.tensor([list(req.prompt)], device=device),
+            max_seq=max_seq)
+        rows[b].append(logits[0, lens[b] - 1])
+        for pos, leaves in st.items():
+            for key, val in leaves.items():
+                state[pos][key][:, b] = val[:, 0]
+        del logits, st
+    for i in range(1, max(n_gen)):
+        j = [min(i, n - 1) for n in n_gen]          # a finished row idles
+        toks = torch.tensor([[req.generated[j[b] - 1 if j[b] else 0]]
+                             for b, req in enumerate(reqs)], device=device)
+        kv_len = torch.tensor([lens[b] + j[b] - 1 if j[b] else lens[b]
+                               for b in range(B)], device=device)
+        logits, state = model.decode_step(params, state, toks, kv_len)
+        for b in range(B):
+            if i < n_gen[b]:
+                rows[b].append(logits[b, 0])
+    return rows
 
 
 def _lognormal_lengths(rng, n, median, sigma, lo, hi):
@@ -1348,6 +1549,13 @@ def _kernel_times(fn):
     return out
 
 
+#: the kernels of each L2 flush (by the flush's name: every flush here is
+#: one ``Tensor.zero_`` over 64 MB), named once per process: the profiler
+#: has lost every event of a flush's profile three times in a row (in
+#: F3), and the names do not change
+_FLUSH_NAMES: dict = {}
+
+
 def kernel_rows(fn, reps, flush, expect="", counter=None, tries=3):
     """``{kernel name: {"ms", "recorded", "expected"}}`` of what ``fn``
     launches over ``reps`` calls, each after ``flush()`` (kernels named as
@@ -1361,9 +1569,11 @@ def kernel_rows(fn, reps, flush, expect="", counter=None, tries=3):
     profiled calls, exactly; for a kernel without a count (a library
     call's) ``reps`` times its recorded events per call, rounded, at least
     one a call.  The profiler has been seen to lose events on the card
-    (the flush's single call; one of three calls at 32k tokens), so the
-    flush is profiled over ``reps`` calls and a profile short of events is
-    taken again, up to ``tries`` times; a kernel still short after that is
+    (the flush's single call; one of three calls at 32k tokens; all of a
+    flush's calls, three profiles in a row), so the flush is profiled over
+    ``reps`` calls until its kernels are named (at most ``tries`` times,
+    once per process: :data:`_FLUSH_NAMES`) and a profile short of events
+    is taken again, up to ``tries`` times; a kernel still short after that is
     timed as its mean recorded launch times its expected launches per
     call, its ``recorded`` below its ``expected`` saying so.  Raises
     ``ValueError`` where no profile records a kernel for each fragment of
@@ -1376,12 +1586,16 @@ def kernel_rows(fn, reps, flush, expect="", counter=None, tries=3):
     def flushes():
         for _ in range(reps):
             flush()
-    for _ in range(tries):
+    flush_names = _FLUSH_NAMES.get(flush.__name__, set())
+    for _ in range(0 if flush_names else tries):
         flush_names = set(_kernel_times(flushes))
         if flush_names:
+            _FLUSH_NAMES[flush.__name__] = flush_names
             break
     else:
-        raise ValueError("the profiler recorded no kernel of the L2 flush")
+        if not flush_names:
+            raise ValueError("the profiler recorded no kernel of the L2 "
+                             "flush")
 
     def runs():
         for _ in range(reps):
@@ -1691,20 +1905,23 @@ def sass_counts(sass: str) -> dict:
 
 def flash_sass_mix(sass: str) -> dict:
     """The flash library's instantiations as ``{"bf16 D=128": {op: n},
-    "f32 D=128": ...}`` (from :func:`sass_counts`): the tensor-core
-    kernel (``_wg``: wgmma) is the bf16 one, the FMA kernel the f32 one.
+    "bf16 D=128 q_off": ..., "f32 D=128": ...}`` (from
+    :func:`sass_counts`): the tensor-core kernel (``_wg``: wgmma) is the
+    bf16 one, built for offset 0 and, ``q_off``, for a runtime query
+    offset; the FMA kernel is the f32 one.
     Raises ``ValueError`` where a bf16 instantiation has no HGMMA, or an
     f32 one has no FFMA or any tensor-core product (TF32)."""
     import re
     mix = {}
     for fn, ops in sass_counts(sass).items():
-        m = re.search(r"flash_attention_fwd(_wg)?_kernelI(f)?Li(\d+)E", fn)
+        m = re.search(r"flash_attention_fwd(_wg)?_kernelI(f)?Li(\d+)E"
+                      r"(Lb1E)?", fn)
         if not m:
             continue
         dt = "bf16" if m.group(1) else ("f32" if m.group(2) else None)
         if dt is None:
             raise ValueError(f"unexpected flash instantiation {fn}")
-        mix[f"{dt} D={m.group(3)}"] = ops
+        mix[f"{dt} D={m.group(3)}" + (" q_off" if m.group(4) else "")] = ops
     for dt in ("bf16", "f32"):
         if not any(k.startswith(dt) for k in mix):
             raise ValueError(f"no {dt} instantiation in the flash library's "
@@ -1741,16 +1958,19 @@ def launch_counts() -> dict:
                 flash_attention=fa_ops.LAUNCHES["flash_attention"])
 
 
-def flash_bound(B, S, H, KVH, D, elt, causal=True):
-    """Least time the card could take for one forward attention: bytes of
+def flash_bound(B, S, H, KVH, D, elt, causal=True, q_offset=0):
+    """Least time the card could take for one forward attention of S query
+    rows at positions ``q_offset ..`` over ``q_offset + S`` keys: bytes of
     q, k, v read once and o written once at the HBM rate; operations (a
     multiply-add each for q.k and p.v per head dim, query head and (query,
-    key) pair the mask keeps: S(S+1)/2 pairs causal, S^2 not) at the peak
-    rate of the inputs' type (bf16 tensor rate for 2-byte types, the f32
-    rate otherwise).  Returns (ms, by, bytes, flops, bytes_ms, ops_ms)."""
-    pairs = S * (S + 1) // 2 if causal else S * S
+    key) pair the mask keeps: S q_offset + S(S+1)/2 pairs causal, S
+    (q_offset + S) not) at the peak rate of the inputs' type (bf16 tensor
+    rate for 2-byte types, the f32 rate otherwise).  Returns (ms, by,
+    bytes, flops, bytes_ms, ops_ms)."""
+    Skv = q_offset + S
+    pairs = S * q_offset + S * (S + 1) // 2 if causal else S * Skv
     flops = 4 * D * B * H * pairs
-    n_bytes = elt * B * S * D * (2 * H + 2 * KVH)
+    n_bytes = elt * B * D * (2 * H * S + 2 * KVH * Skv)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / (BF16_FLOP_PER_S if elt == 2 else F32_FLOP_PER_S) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
@@ -1759,7 +1979,8 @@ def flash_bound(B, S, H, KVH, D, elt, causal=True):
 
 def flash_inputs(shape, dtype, device, seed=0):
     """q [B, S, H, D] and k, v [B, S, KVH, D], standard normal from a numpy
-    seed, in ``dtype`` on ``device``."""
+    seed, in ``dtype`` on ``device`` (a chunk at ``q_offset`` takes q's
+    rows ``q_offset ..`` and k, v's first ``q_offset + Sq``)."""
     import numpy as np
     import torch
     B, S, H, KVH, D = shape
@@ -1769,10 +1990,10 @@ def flash_inputs(shape, dtype, device, seed=0):
                                   (B, S, KVH, D))]
 
 
-def flash_vs_plain(q, k, v, causal):
+def flash_vs_plain(q, k, v, causal, q_offset=0):
     """The flash-attention kernel against ``flash_attention_ref`` on the same
-    card tensors, and against itself (a second call must give the same
-    bits).  Holds every element to ``atol + rtol * |plain|`` with the
+    card tensors (queries at ``q_offset ..``), and against itself (a second
+    call must give the same bits).  Holds every element to ``atol + rtol * |plain|`` with the
     dtype's tolerance (``PA_TOL``) and, in bf16, to one bf16 ulp of the
     output (``BF16_ULP_RTOL * |plain| + BF16_RMS_ATOL * rms(plain)``).
     Returns ``{"max_abs_err", "rms", "limit_used"}``: the largest
@@ -1783,9 +2004,9 @@ def flash_vs_plain(q, k, v, causal):
     from repro_torch.kernels.flash_attention import (flash_attention_gqa,
                                                      flash_attention_ref)
     tol = PA_TOL[str(q.dtype).replace("torch.", "")]
-    got = flash_attention_gqa(q, k, v, causal=causal)
-    again = flash_attention_gqa(q, k, v, causal=causal)
-    want = flash_attention_ref(q, k, v, causal=causal)
+    got = flash_attention_gqa(q, k, v, causal=causal, q_offset=q_offset)
+    again = flash_attention_gqa(q, k, v, causal=causal, q_offset=q_offset)
+    want = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     if q.device.type == "cuda":
         torch.cuda.synchronize()
     if not torch.equal(got, again):
@@ -2090,9 +2311,33 @@ def main() -> int:
     pa, serve_out, params = serve_phases(torch, np, dev, pa_build, pa_ops)
     fa, flash_out = flash_phases(torch, np, dev, params, fa_build,
                                  serve_out)
+    chunk_out = chunked_phases(torch, np, dev, params)
     del params
+    torch.cuda.empty_cache()
+    fam_out = family_phases(torch, np, dev)
     fa["sass"] = sass_mix
     pa["at_f3_step"] = flash_out["f3"]["paged_layer"]["line"]
+    m_launches = {tag: {k: sum(r["launches"][k]
+                               for r in fam_out["m1"].values())
+                        if tag == "M1" else fam_out[tag.lower()]["launches"][k]
+                        for k in ("flash_attention", "paged_attention")}
+                  for tag in ("M1", "M2", "M3")}
+    fa["launches_by_path"].update(
+        C1_vs_plain=chunk_out["c1"]["launches"],
+        C2=chunk_out["c2"]["chunked_flash_launches"],
+        **{tag: n["flash_attention"] for tag, n in m_launches.items()})
+    pa["launches_by_path"] = dict(
+        S3=pa["launches"], F3=flash_out["f3"]["launches"]["paged_attention"],
+        **{tag: n["paged_attention"] for tag, n in m_launches.items()})
+    t = chunk_out["c1"]["timing"]
+    fa["at_q_offset"] = {key: (round(t[key], 5) if isinstance(t[key], float)
+                               else t[key])
+                         for key in ("q_offset", "Sq", "Skv", "ms",
+                                     "ms_profiler", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "profiler_events")}
+    fa["at_q_offset"]["max_abs_err"] = max(
+        e["max_abs_err"] for e in chunk_out["c1"]["errs"].values())
 
     # ----------------------------------------------------------- 5. report
     phase("5. report")
@@ -2100,7 +2345,8 @@ def main() -> int:
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=[tlb, pa, fa], tlb_sweep=tlb_out,
                        serving=serve_out, prefill=flash_out,
-                       flash_sass=sass_mix), f, indent=1)
+                       chunked_prefill=chunk_out, families=fam_out,
+                       flash_sass=sass_mix), f, indent=1, default=float)
     print(json.dumps({"kernels": [tlb, pa, fa]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2575,6 +2821,548 @@ def flash_phases(torch, np, dev, params, fa_build, serve_out):
                               "bound_by", "library_ms", "library_ms_profiler",
                               "profiler_events", "library_profiler_events")})
     return kernel, out
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill (C1, C2) and the MoE, hybrid and xLSTM families (M1-M3)
+# ---------------------------------------------------------------------------
+
+def chunk_of(q, k, v, n_chunks, ci):
+    """Chunk ``ci`` of ``n_chunks`` of a whole prefill's attention inputs:
+    q's rows ``off .. off + Sc`` and k, v's first ``off + Sc`` rows, with
+    ``off = ci * Sc`` (views, no copies).  Returns (q, k, v, off)."""
+    Sc = q.shape[1] // n_chunks
+    off = ci * Sc
+    return q[:, off:off + Sc], k[:, :off + Sc], v[:, :off + Sc], off
+
+
+def chunked_vs_plain(q, k, v, causal, n_chunks):
+    """Every chunk of a whole prefill's attention (:func:`chunk_of`) through
+    the kernel at its query offset against the plain version
+    (:func:`flash_vs_plain`), and, causal, the chunks' rows against the
+    whole call's (kernel at offset 0): a row walks the same key tiles in
+    the same order either way, the tiles it walks past its diagonal being
+    wholly masked, which leaves its state's bits as they were (``alpha =
+    exp(0) = 1``, weights ``exp(-1e30 - m) = 0``), so they must be equal
+    bit for bit.  Returns ``{"chunks": [flash_vs_plain results],
+    "max_abs_err", "limit_used", "bits_equal_whole": [bool per chunk, or
+    None non-causal]}``; raises ``ValueError`` past a limit, where a causal
+    chunk's bits differ from the whole call's, or where the kernel's
+    explicit ``q_offset=0`` gives other bits than its default call."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    whole = flash_attention_gqa(q, k, v, causal=causal)
+    if not torch.equal(whole, flash_attention_gqa(q, k, v, causal=causal,
+                                                  q_offset=0)):
+        raise ValueError("q_offset=0 gave other bits than the default call")
+    res = dict(chunks=[], bits_equal_whole=[])
+    for ci in range(n_chunks):
+        qc, kc, vc, off = chunk_of(q, k, v, n_chunks, ci)
+        res["chunks"].append(flash_vs_plain(qc, kc, vc, causal, off))
+        got = flash_attention_gqa(qc, kc, vc, causal=causal, q_offset=off)
+        same = bool(torch.equal(got, whole[:, off:off + qc.shape[1]]))
+        if causal and not same:
+            raise ValueError(f"chunk {ci} (q_offset {off}): other bits than "
+                             "the whole call's rows")
+        res["bits_equal_whole"].append(same if causal else None)
+    res["max_abs_err"] = max(c["max_abs_err"] for c in res["chunks"])
+    res["limit_used"] = max(c["limit_used"] for c in res["chunks"])
+    return res
+
+
+def prefill_chunked_vs_whole(model, params, toks, n_chunks, block=1024):
+    """``Model.prefill_chunked`` against ``Model.prefill`` on the same
+    tokens (phase C2): the last position's top-1 equal wherever the whole
+    prefill's top-2 gap exceeds ``DENSE_MARGIN``; every logit within
+    ``C2_LOGIT_ATOL``; the KV cache's filled prefix within ``C2_KV_RTOL *
+    |whole| + C2_KV_ATOL * rms(whole)``, compared ``block`` positions at a
+    time.  Returns the errors, walls and flash launches of both passes;
+    raises ``ValueError`` past a limit."""
+    import torch
+    out = {}
+    runs = {}
+    for name, fn in (("whole", lambda: model.prefill(params, toks)),
+                     ("chunked", lambda: model.prefill_chunked(
+                         params, toks, n_chunks=n_chunks))):
+        if toks.device.type == "cuda":
+            torch.cuda.synchronize()
+        n0 = launch_counts()["flash_attention"]
+        t0 = time.perf_counter()
+        runs[name] = fn()
+        if toks.device.type == "cuda":
+            torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        out[f"{name}_flash_launches"] = (launch_counts()["flash_attention"]
+                                         - n0)
+    (lw, sw), (lc, sc) = runs["whole"], runs["chunked"]
+    S, vocab = toks.shape[1], model.cfg.vocab
+    row_w, row_c = lw[0, -1, :vocab].float(), lc[0, -1, :vocab].float()
+    top2 = row_w.topk(2).values
+    gap = float(top2[0] - top2[1])
+    out["last_top1_gap"] = gap
+    out["last_top1_equal"] = bool(row_w.argmax() == row_c.argmax())
+    if gap > DENSE_MARGIN and not out["last_top1_equal"]:
+        raise ValueError(f"last position: top-1 {int(row_c.argmax())}, the "
+                         f"whole prefill's {int(row_w.argmax())} leads by "
+                         f"{gap:.4g} > {DENSE_MARGIN}")
+    err = 0.0
+    for r0 in range(0, S, block):
+        err = max(err, float((lc[0, r0:r0 + block, :vocab].float()
+                              - lw[0, r0:r0 + block, :vocab].float())
+                             .abs().max()))
+    out["logits_max_abs_err"] = err
+    if err > C2_LOGIT_ATOL:
+        raise ValueError(f"logits differ from the whole prefill's by "
+                         f"{err:.4g} > {C2_LOGIT_ATOL}")
+    used, kv_err = 0.0, 0.0
+    for pos, st in sw.items():
+        for key, whole in st.items():
+            for i in range(whole.shape[0]):
+                w = whole[i, :, :S].float()
+                d = (sc[pos][key][i, :, :S].float() - w).abs()
+                rms = float(w.square().mean().sqrt())
+                kv_err = max(kv_err, float(d.max()))
+                used = max(used, float((d / (C2_KV_RTOL * w.abs()
+                                             + C2_KV_ATOL * rms)).max()))
+    out["kv_max_abs_err"], out["kv_limit_used"] = kv_err, used
+    if used > 1:
+        raise ValueError(f"the KV cache differs from the whole prefill's by "
+                         f"{kv_err:.4g}, {used:.3g} of its limit")
+    return out
+
+
+def family_requests(vocab):
+    """M2's and M3's requests: S3's first ``M_REQUESTS``, answers capped at
+    ``M_ANSWER_CAP`` tokens."""
+    return [(p, min(n, M_ANSWER_CAP))
+            for p, n in s3_requests(vocab)[:M_REQUESTS]]
+
+
+def chunked_phases(torch, np, dev, params):
+    """Phases C1 and C2 (chunked prefill; ``params``: InternLM2-1.8B's bf16
+    weights on the card); returns the numbers for ``chip_smoke.json`` and
+    the flash line's additions."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_gqa,
+                                                     flash_attention_ref)
+    from repro_torch.models import Model, RunConfig
+    out = {}
+    model = Model(get_config(SERVE_ARCH), RunConfig())
+    cfg = model.cfg
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    # ------------------------------- C1. the q-offset kernel vs plain
+    t0 = phase(f"C1. flash-attention kernel at a query offset (chunked "
+               f"prefill, {C_CHUNKS} chunks) vs plain version on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [(f"test_kernels{i}", shape[:5], shape[5], dt)
+             for i, shape in enumerate(FLASH_SHAPES)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(f"internlm2_S{S}", (1, S, H, KVH, D), True, dt)
+              for S in C1_LENS for dt in (torch.float32, torch.bfloat16)]
+    errs = {}
+    reset_counts()
+    try:
+        for name, shape, causal, dt in cases:
+            q, k, v = flash_inputs(shape, dt, dev)
+            t1 = time.time()
+            errs[f"{name}_{str(dt)[6:]}"] = e = chunked_vs_plain(
+                q, k, v, causal, C_CHUNKS)
+            print(f"  {name} {str(dt)[6:]} {shape} causal={causal}, "
+                  f"{C_CHUNKS} chunks of {shape[1] // C_CHUNKS} (last "
+                  f"q_offset {(C_CHUNKS - 1) * (shape[1] // C_CHUNKS)}): max "
+                  f"abs err {e['max_abs_err']:.3g}, "
+                  f"{100 * e['limit_used']:.1f} % of the tighter limit; "
+                  f"chunk rows == whole call's bit for bit "
+                  f"{e['bits_equal_whole']} ({time.time() - t1:.1f} s)")
+            del q, k, v
+    except ValueError as e:
+        fail(f"C1 {name} {dt}: {e}")
+    c1_launches = launch_counts()["flash_attention"]
+    err32, err16 = (max(e["max_abs_err"] for n, e in errs.items()
+                        if n.endswith(dt)) for dt in ("float32", "bfloat16"))
+    used16 = max(e["limit_used"] for n, e in errs.items()
+                 if n.endswith("bfloat16"))
+    print(f"kernel == plain version at every offset: max abs err "
+          f"{err32:.3g} (f32), {err16:.3g} (bf16, {100 * used16:.1f} % of "
+          f"the one-ulp limit); causal chunks == the whole call's rows and "
+          f"q_offset=0 == the default call, bit for bit; {c1_launches} "
+          "kernel launches (comparisons)")
+    # the last chunk of F3's prompt, timed (bf16, causal)
+    S = C1_LENS[1]
+    q, k, v = flash_inputs((1, S, H, KVH, D), torch.bfloat16, dev, seed=1)
+    qc, kc, vc, off = chunk_of(q, k, v, C_CHUNKS, C_CHUNKS - 1)
+    Sq = qc.shape[1]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev).zero_
+    run = lambda: flash_attention_gqa(qc, kc, vc, causal=True,  # noqa: E731
+                                      q_offset=off)
+    try:
+        timed = device_ms(run, 5, flush, "flash_attention_fwd",
+                          "flash_attention")
+    except ValueError as e:
+        fail(f"C1 timing: {e}")
+    ms = cuda_time_ms(run, 10, flush)
+    plain = cuda_time_ms(lambda: flash_attention_ref(
+        qc, kc, vc, causal=True, q_offset=off), 2, flush)
+    # the library yardstick on [B, H, S, D], K/V repeated to H heads and an
+    # explicit mask (is_causal aligns the diagonal to the top left)
+    qt = qc.transpose(1, 2).contiguous()
+    kt = kc.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+    vt = vc.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+    mask = ((off + torch.arange(Sq, device=dev))[:, None]
+            >= torch.arange(off + Sq, device=dev)[None, :])
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask)
+    lib = cuda_time_ms(sdpa, 10, flush)
+    lib_err = float((sdpa().transpose(1, 2).float() - run().float()).abs()
+                    .max())
+    b_ms, b_by, b_bytes, b_flops, b_tb, b_to = flash_bound(
+        1, Sq, H, KVH, D, 2, q_offset=off)
+    c1_time = dict(
+        q_offset=off, Sq=Sq, Skv=off + Sq, ms=ms, ms_profiler=timed["ms"],
+        profiler_events=events_note(timed), plain_ms=plain, library_ms=lib,
+        library_vs_kernel_max_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by,
+        bytes=b_bytes, flops=b_flops, tflops=b_flops / (ms * 1e-3) / 1e12,
+        library=("scaled_dot_product_attention(attn_mask=causal at the "
+                 "offset) on the same q and K/V repeated to H heads, [B, H, "
+                 "S, D], repeat excluded"))
+    print(f"last chunk (Sq {Sq}, q_offset {off}, Skv {off + Sq}, bf16): "
+          f"kernel {ms:.5f} ms CUDA events behind a queued spin "
+          f"({c1_time['tflops']:.2f} Tflop/s), {timed['ms']:.5f} ms device "
+          f"time (profiler, events {events_note(timed)}); plain version "
+          f"{plain:.3f} ms; SDPA with the explicit mask {lib:.5f} ms (vs the "
+          f"kernel max abs err {lib_err:.3g}); bound {b_ms:.5f} ms by {b_by} "
+          f"({b_flops:.4g} flop, {b_bytes} B) ({time.time() - t0:.1f} s in "
+          "all)")
+    out["c1"] = dict(errs=errs, launches=c1_launches, timing=c1_time)
+    del q, k, v, qc, kc, vc, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+
+    # ------------------------- C2. prefill_chunked at full width
+    t0 = phase(f"C2. Model.prefill_chunked at full width, bf16: "
+               f"InternLM2-1.8B, F3's {F3_PROMPT}-token prompt in "
+               f"{C_CHUNKS} chunks, vs Model.prefill")
+    rng = np.random.default_rng(F3_SEED)
+    toks = torch.tensor([[int(t) for t in rng.integers(0, cfg.vocab,
+                                                       F3_PROMPT)]],
+                        device=dev)
+    reset_counts()
+    try:
+        c2 = prefill_chunked_vs_whole(model, params, toks, C_CHUNKS)
+    except ValueError as e:
+        fail(f"C2: {e}")
+    want = cfg.n_layers * C_CHUNKS
+    if c2["chunked_flash_launches"] != want or \
+            c2["whole_flash_launches"] != cfg.n_layers:
+        fail(f"C2: the chunked prefill launched the flash kernel "
+             f"{c2['chunked_flash_launches']} times (want {want}), the "
+             f"whole one {c2['whole_flash_launches']}")
+    print(f"prefill_chunked {c2['chunked_s']:.3f} s ({want} flash "
+          f"launches), prefill {c2['whole_s']:.3f} s; last position top-1 "
+          f"equal {c2['last_top1_equal']} (whole top-2 gap "
+          f"{c2['last_top1_gap']:.4g}); logits max abs err "
+          f"{c2['logits_max_abs_err']:.4g} <= {C2_LOGIT_ATOL}; KV cache max "
+          f"abs err {c2['kv_max_abs_err']:.4g} "
+          f"({100 * c2['kv_limit_used']:.1f} % of its limit) "
+          f"({time.time() - t0:.1f} s in all)")
+    out["c2"] = c2
+    del toks
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_phases(torch, np, dev):
+    """Phases M1-M3 (the MoE, hybrid and xLSTM families through the
+    engine); returns the numbers for ``chip_smoke.json``."""
+    return dict(m1=m1_phase(torch, dev), m2=m2_phase(torch, np, dev),
+                m3=m3_phase(torch, np, dev))
+
+
+def m3_phase(torch, np, dev):
+    """M3: xLSTM-350M at full width through the engine, no attention; then
+    the f32 witness."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, RunConfig
+    t0 = phase(f"M3. xLSTM-350M at full width, bf16: S3's first "
+               f"{M_REQUESTS} requests, answers capped at {M_ANSWER_CAP} "
+               "tokens (no attention position)")
+    model = Model(get_config(M3_ARCH), RunConfig(param_dtype="bfloat16"))
+    free_earlier_phases(torch)
+    params = model.init_on_device(0, dev)
+    m3 = serve_family(torch, np, dev, model, params, "M3")
+    eng = m3.pop("engine")
+    m3.pop("probe")
+    if m3["launches"]["flash_attention"] or m3["launches"]["paged_attention"]:
+        fail(f"M3: a model with no attention launched {m3['launches']}")
+    if any("pool_k" in st for st in eng.state.values()):
+        fail("M3: the engine holds a KV pool for a model with no attention")
+    m3["dense_check"] = batched_dense_check(
+        dev, model, params, [eng.requests[i] for i in range(M_REQUESTS)],
+        "M3")
+    m3["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del eng, params
+    m3["f32_witness"] = m3_f32_witness(torch, np, dev)
+    print(f"no flash or paged launch, no pool; peak device memory "
+          f"{m3['peak_memory_gb']:.2f} GB in bf16 ({time.time() - t0:.1f} s "
+          "in all)")
+    torch.cuda.empty_cache()
+    return m3
+
+
+def m3_f32_witness(torch, np, dev):
+    """M3's check with nothing batched: xLSTM-350M at full width in f32
+    (TF32 off) through the same engine and requests, each request then
+    decoded alone by the dense decode, every token equal wherever the
+    dense top-2 gap exceeds ``2 * LOGIT_ATOL`` (f32 rounding at batch 1
+    and 8 moves a logit by far less)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, RunConfig
+    from repro_torch.serve import EngineConfig, ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(get_config(M3_ARCH), RunConfig(compute_dtype="float32"))
+    params = model.init_on_device(0, dev)
+    eng = ServingEngine(model, params, EngineConfig(**S3_ENGINE), device=dev)
+    for p, n_new in family_requests(model.cfg.vocab):
+        eng.add_request(p, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    reqs = [eng.requests[i] for i in range(M_REQUESTS)]
+    try:
+        dc = dense_check(model, eng.params, reqs, dev, 2 * LOGIT_ATOL)
+    except ValueError as e:
+        fail(f"M3 f32 vs the dense decode, each request alone: {e}")
+    dc["engine_wall_s"] = wall
+    print(f"f32 witness (weights {model.n_params() * 4 / 1e9:.2f} GB, TF32 "
+          f"off): engine {wall:.2f} s; vs the dense-cache decode_step, "
+          f"each request alone, teacher-forced: {dc['equal']} of "
+          f"{dc['checked']} tokens equal, the rest within "
+          f"{2 * LOGIT_ATOL} (largest lead {dc['max_gap']:.4g})")
+    del eng, params
+    return dc
+
+
+def free_earlier_phases(torch):
+    """Collect what earlier phases left (an engine and its probe refer to
+    each other, so only the cycle collector frees their pools), return it
+    to the card and restart the peak-memory count; prints what stays."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"device memory held before the phase: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+
+def m1_phase(torch, dev):
+    """M1: the reduced families in f32 against the JAX engine's fixture."""
+    from repro_torch.configs import get_config
+    t0 = phase("M1. qwen2-moe, jamba and xlstm (reduced), f32, vs the JAX "
+               "engine")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = json.load(open(FAMILY_REF_JSON))
+    out = {}
+    for arch, rec in ref["models"].items():
+        cfg = get_config(arch, reduced=True)
+        reset_counts()
+        try:
+            res = serve_against_fixture(rec, dev)
+            torch.cuda.synchronize()
+        except ValueError as e:
+            fail(f"M1 {arch}: {e}")
+        res.pop("params")
+        res["launches"] = counts = launch_counts()
+        n_attn = cfg.n_attn_layers
+        if (counts["flash_attention"] != n_attn * res["prefills"]
+                or (counts["paged_attention"] > 0) != (n_attn > 0)
+                or counts["tlb_sweep"]):
+            fail(f"M1 {arch}: {res['prefills']} prefills and the decode "
+                 f"steps launched {counts}; want {n_attn} flash launches a "
+                 f"prefill and paged launches iff the model has attention")
+        print(f"{arch}: tokens {res['generated']} == JAX "
+              f"({res['tokens_checked']} of {res['tokens_total']} past the "
+              f"margin), logits max abs err {res['max_abs_err']:.3g} <= "
+              f"{LOGIT_ATOL}, K={res['K']}, descriptor reduction "
+              f"{res['descriptor_reduction']:.4f} == JAX; launches {counts}")
+        out[arch] = res
+    print(f"({time.time() - t0:.1f} s in all)")
+    return out
+
+
+def m2_phase(torch, np, dev):
+    """M2: Qwen1.5-MoE-A2.7B at full width through the engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, RunConfig
+    from repro_torch.serve import EngineConfig, ServingEngine
+    t0 = phase("M2. Qwen1.5-MoE-A2.7B at full width, bf16 weights: S3's "
+               f"first {M_REQUESTS} requests, answers capped at "
+               f"{M_ANSWER_CAP} tokens")
+    model = Model(get_config(M2_ARCH), RunConfig(param_dtype="bfloat16"))
+    cfg = model.cfg
+    free_earlier_phases(torch)
+    t1 = time.time()
+    params = model.init_on_device(0, dev)
+    torch.cuda.synchronize()
+    t_init = time.time() - t1
+    print(f"{model.n_params():,} parameters drawn slice by slice and stored "
+          f"in bf16 on the card in {t_init:.1f} s "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    m2 = serve_family(torch, np, dev, model, params, "M2")
+    m2["init_s"] = t_init
+    if m2["launches"]["flash_attention"] != cfg.n_layers * m2["prefills"]:
+        fail(f"M2: {m2['prefills']} prefills launched the flash kernel "
+             f"{m2['launches']['flash_attention']} times")
+    by_class = m2["launches_by_class"]
+    if m2["launches"]["paged_attention"] < 1 or not any(
+            int(k) >= 1 and n > 0 for k, n in by_class.items()):
+        fail("M2: the paged kernel did not run a class k >= 1")
+    if not m2["descriptor_reduction"] > 0:
+        fail("M2: no descriptor was coalesced")
+    eng, probe = m2.pop("engine"), m2.pop("probe")
+    step = max(probe.steps, key=lambda s: (int((s["lens"] > 0).sum()),
+                                           int(s["lens"].sum())))
+    q = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (S3_ENGINE["max_batch"], cfg.n_heads, cfg.head_dim)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+    try:
+        m2["class_passes_vs_plain"] = kernel_vs_plain(
+            q, eng.state["pos0"]["pool_k"][0], eng.state["pos0"]["pool_v"][0],
+            step["tables"], (step["lens"] + 1).astype(np.int32), step["K"],
+            S3_ENGINE["page_size"])
+        m2["profile_decode_step"] = prof = profile_decode_step(
+            model, eng, step, dev)
+    except ValueError as e:
+        fail(f"M2 class passes / profile: {e}")
+    print(f"one decode step's class passes (K={step['K']}, layer 0) vs "
+          f"plain: max abs err " + ", ".join(
+              f"{k} {v:.3g}" for k, v in m2["class_passes_vs_plain"].items()))
+    print(f"profiler, one M2 decode step replayed: {prof['kernels']} "
+          f"kernels, device {prof['device_ms']:.3f} ms = paged attention "
+          f"{prof['paged_attention_ms']:.3f} + matmuls "
+          f"{prof['matmul_ms']:.3f} + other {prof['other_ms']:.3f} ms, of "
+          f"{prof['wall_ms']:.3f} ms host wall (device busy "
+          f"{100 * prof['busy_share']:.1f} %)")
+    for r in prof["top"][:8]:
+        print(f"  {r['ms']:8.3f} ms  x{r['count']:<4d} {r['name']}")
+    reqs = [eng.requests[i] for i in range(M_REQUESTS)]
+    del eng, probe, q
+    gc.collect()                     # the engine and its probe: a cycle
+    torch.cuda.empty_cache()
+    # the routings behind the timed run's tokens, from a second, untimed
+    # run of the same requests with the recording yardstick as its model
+    tape = RouteTape()
+    eng = ServingEngine(yardstick(model, tape), params,
+                        EngineConfig(**S3_ENGINE), device=dev)
+    for r in reqs:
+        eng.add_request(r.prompt, max_new_tokens=r.max_new_tokens)
+    eng.run_to_completion()
+    if [eng.requests[i].generated for i in range(M_REQUESTS)] != [
+            r.generated for r in reqs]:
+        fail("M2: a second engine run of the same requests gave other "
+             "tokens")
+    tape.replay = True
+    m2["dense_check"] = batched_dense_check(dev, model, params, reqs, "M2",
+                                            tape)
+    m2["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"peak device memory over the phase {m2['peak_memory_gb']:.2f} GB "
+          f"({time.time() - t0:.1f} s in all)")
+    del eng, params
+    torch.cuda.empty_cache()
+    return m2
+
+
+def serve_family(torch, np, dev, model, params, tag):
+    """M2 / M3: ``family_requests`` through ``ServingEngine(S3_ENGINE)``,
+    timed, and every request finished with all its tokens.  Returns the
+    numbers, the engine and its probe."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.serve import EngineConfig, ServingEngine
+    eng = ServingEngine(model, params, EngineConfig(**S3_ENGINE), device=dev)
+    probe = EngineProbe(model, eng)
+    eng.model = probe
+    requests = family_requests(model.cfg.vocab)
+    for p, n_new in requests:
+        eng.add_request(p, max_new_tokens=n_new)
+    print(f"prompt lengths {[len(p) for p, _ in requests]}, answer lengths "
+          f"{[n for _, n in requests]} (S3's, capped at {M_ANSWER_CAP}: a "
+          "cut)")
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.time()
+    m = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pre = [t for _, t in probe.prefill_s]
+    print(f"engine wall {wall:.2f} s: {m['steps']} steps, {m['tokens']} "
+          f"decoded tokens, K={m['K']}, descriptor reduction "
+          f"{m['descriptor_reduction']:.4f}, stalled {m['stalled']}; "
+          f"launches {counts}, paged by class {dict(pa_ops.CLASS_LAUNCHES)}; "
+          f"{len(pre)} prefills {sum(pre):.3f} s (median "
+          f"{statistics.median(pre) * 1e3:.1f} ms), decode steps median "
+          f"{statistics.median(probe.decode_s) * 1e3:.2f} ms; peak device "
+          f"memory {peak:.2f} GB")
+    if m["stalled"] != 0 or [len(eng.requests[i].generated)
+                             for i in range(len(requests))] != [
+                                 n for _, n in requests]:
+        fail(f"{tag}: not every request finished with all its tokens")
+    if counts["tlb_sweep"]:
+        fail(f"{tag}: the serving path launched the TLB kernel")
+    if list(probe.steps[0]["lens"]) != [len(p) for p, _ in requests]:
+        fail(f"{tag}: the first decode step's slots do not hold the "
+             "requests in order, which the batched dense check mirrors")
+    return dict(
+        engine_wall_s=wall, steps=m["steps"], tokens=m["tokens"], K=m["K"],
+        descriptor_reduction=m["descriptor_reduction"], launches=counts,
+        launches_by_class={str(k): n for k, n in
+                           pa_ops.CLASS_LAUNCHES.items()},
+        prefills=len(pre), prefill_s=dict(total=sum(pre),
+                                          median=statistics.median(pre),
+                                          by_tokens=probe.prefill_s),
+        decode_step_s=dict(n=len(probe.decode_s), total=sum(probe.decode_s),
+                           median=statistics.median(probe.decode_s)),
+        engine_peak_memory_gb=peak,
+        prompt_lens=[len(p) for p, _ in requests],
+        answer_lens=[n for _, n in requests], engine=eng, probe=probe)
+
+
+def batched_dense_check(dev, model, params, reqs, tag, tape=None):
+    """M2 / M3: the engine's tokens against the dense-cache decode of
+    :func:`yardstick` (``tape`` replaying the engine's routings), the
+    requests in one batch as the engine ran them: bf16 products at other
+    batch shapes, p rounded to bf16, and a router tie that either rounding
+    tips move these models' logits by more than ``DENSE_MARGIN``, the
+    xLSTM's through its recurrent state, the MoE's through another
+    expert."""
+    try:
+        dc = dense_check(yardstick(model, tape), params, reqs, dev,
+                         DENSE_MARGIN, batched=True)
+    except ValueError as e:
+        fail(f"{tag} vs dense decode: {e}")
+    if tape and tape.pos != len(tape.ids):
+        fail(f"{tag}: the dense decode made {tape.pos} routing calls, the "
+             f"engine {len(tape.ids)}")
+    if tape:
+        dc["route_flips"], dc["route_decisions"] = tape.flips, tape.decisions
+    print(f"vs the dense-cache decode_step, teacher-forced, the "
+          f"{len(reqs)} rows in one batch as the engine ran them"
+          + (", softmax weights in f32 as the paged kernel keeps them"
+             if model.cfg.n_attn_layers else "")
+          + (f", the engine's experts replayed (the dense decode's own "
+             f"top-k differed in {tape.flips} of {tape.decisions} decode "
+             "routings)" if tape else "")
+          + f": {dc['equal']} of {dc['checked']} tokens equal, the rest "
+          f"within {DENSE_MARGIN} (largest lead {dc['max_gap']:.4g})")
+    return dc
 
 
 def _eleven_specs(b):

@@ -1,10 +1,11 @@
-"""Architecture registry of the port: the dense configs it can run.
+"""Architecture registry of the port: the decoder configs it can run.
 
 Each ``<arch>.py`` here is a copy of the JAX package's config module:
 ``CONFIG`` (the published config) and ``REDUCED`` (same family, tiny dims,
-for the CPU tests).  The port runs the dense family only; the other archs
-of the JAX registry wait for ROADMAP A8 (MoE, Mamba, xLSTM layers) and
-raise ``NotImplementedError`` here.
+for the CPU tests).  The port runs the dense, MoE, hybrid (Mamba +
+attention) and xLSTM families; the encoder (``hubert-xlarge``) and VLM
+(``llava-next-34b``) archs of the JAX registry wait for their input paths
+(ROADMAP A8c) and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -18,16 +19,16 @@ ARCH_IDS: Tuple[str, ...] = (
     "internlm2-1.8b",
     "mistral-nemo-12b",
     "granite-8b",
-)
-
-#: archs of the JAX registry whose layers are not ported yet
-NOT_PORTED: Tuple[str, ...] = (
     "xlstm-350m",
-    "hubert-xlarge",
-    "llava-next-34b",
     "jamba-1.5-large-398b",
     "qwen2-moe-a2.7b",
     "granite-moe-3b-a800m",
+)
+
+#: archs of the JAX registry whose input paths are not ported yet
+NOT_PORTED: Tuple[str, ...] = (
+    "hubert-xlarge",
+    "llava-next-34b",
 )
 
 _MODULES = {
@@ -35,14 +36,18 @@ _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "granite-8b": "granite_8b",
+    "xlstm-350m": "xlstm_350m",
+    "jamba-1.5-large-398b": "jamba_1_5_large",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "granite-moe-3b-a800m": "granite_moe_3b",
 }
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     if arch in NOT_PORTED:
         raise NotImplementedError(
-            f"{arch!r} is not a dense model; its layers are not ported yet "
-            "(ROADMAP A8)")
+            f"{arch!r} needs the encoder / VLM input paths (input_embeds, "
+            "patch_embeds), which are not ported yet (ROADMAP A8c)")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"{__package__}.{_MODULES[arch]}")

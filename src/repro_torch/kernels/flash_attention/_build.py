@@ -15,7 +15,7 @@ SOURCES = ("flash_attention.cu",)
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = (
-        [ptr] * 4 + [i32] * 5 + [ptr, ctypes.c_float, i32, i32, ptr])
+        [ptr] * 4 + [i32] * 7 + [ptr, ctypes.c_float, i32, i32, ptr])
     lib.flash_attention_fwd.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p

@@ -6,10 +6,13 @@
 // scratch across the sequential kv axis and writes the normalised tile at
 // the last kv step).
 //
-// What it computes: for batch row b, query head h and every query position
-// i < S, attention over the key positions j < S of KV head h / (H / KVH)
+// What it computes: for batch row b, query head h and every query row
+// i < Sq, attention over the key positions j < Skv of KV head h / (H / KVH)
 // (the order of the JAX op's jnp.repeat, which these kernels never
-// materialise), with j <= i under `causal`.  q, k and v are read in their
+// materialise), with j <= q_off + i under `causal`: query row i sits at
+// absolute position q_off + i of a sequence whose first Skv = q_off + Sq
+// keys are given (q_off = 0 and Skv = Sq is the Pallas kernel's case; a
+// later chunk of a chunked prefill attends over the cache filled so far).  q, k and v are read in their
 // own dtype (f32 or bf16); a score is the f32 sum of the exact products
 // q_d * k_d, times scale, or exactly NEG_INF = -1e30 where it is masked.
 // Per kv tile of 64 keys the state of each query row is updated as the
@@ -18,7 +21,7 @@
 //   l = l * alpha + sum p;  acc = acc * alpha + p @ v
 // from (m, l, acc) = (-1e30, 0, 0), all f32 (p too: it is not rounded once
 // to bf16 for the p @ v product), and the row's output is
-// acc / max(l, 1e-30) cast to q's dtype.  Rows at or past S are never
+// acc / max(l, 1e-30) cast to q's dtype.  Rows at or past Sq are never
 // written.  The tiles are these kernels' own (64 or 128 q rows by 64
 // keys): a kv tile wholly above the causal diagonal is not visited, which
 // leaves every row's state exactly as the masked tile would (its weights
@@ -27,7 +30,8 @@
 // the last (the longest causal walk) to the first.
 //
 // What bounds it: operations.  A causal layer does 4 * D flops per (query,
-// key) pair at or below the diagonal, H * S * (S + 1) / 2 pairs, against
+// key) pair at or below the diagonal, H * S * (S + 1) / 2 pairs at q_off =
+// 0 (a chunk at q_off > 0 has H * Sq * (q_off + (Sq + 1) / 2)), against
 // reading q, k, v and writing o once: at InternLM2-1.8B's layer (H = 16,
 // KVH = 8, D = 128, bf16) S = 3,072 is 3.9e10 flops for 38 MB (0.039 ms
 // at 989 Tflop/s, 0.011 ms at 3.35 TB/s), and S = 32,768 4.4e12 flops for
@@ -64,7 +68,11 @@
 //   keeps p to ~2^-16 relative (a single bf16 rounding, 2^-9, would spend
 //   most of the one-bf16-ulp margin the card test holds the output to) at
 //   1.5x the product work.  Masks are applied only on tiles that reach
-//   past S or across a warp's causal diagonal.
+//   past Skv or across a warp's causal diagonal.  The kernel is built
+//   twice per D: with the query offset a runtime value, and for offset 0
+//   (every whole prefill) with q_off = 0 and Skv = Sq constants, whose
+//   code is the offset-free kernel's (the runtime offset cost ~5 % at S =
+//   3,072 on the H100, scripts/flash_ab.py).
 //   A producer warpgroup gives its registers to the consumers (setmaxnreg
 //   40 / 232), and one of its threads keeps a ring of 3 K/V stages full
 //   with TMA box loads (64 keys x min(D, 64) columns each, the tensor maps
@@ -154,8 +162,8 @@ __device__ __forceinline__ void stage(T* dst, const T* src, int64_t stride,
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int S,
-                           int H, int G, int64_t q_sb, int64_t q_ss,
+                           const T* __restrict__ v, T* __restrict__ o,
+                           int Sq, int Skv, int q_off, int H, int G, int64_t q_sb, int64_t q_ss,
                            int64_t q_sh, int64_t k_sb, int64_t k_ss,
                            int64_t k_sh, int64_t v_sb, int64_t v_ss,
                            int64_t v_sh, float scale, int causal) {
@@ -175,11 +183,11 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * k_sb + (h / G) * k_sh;
   const T* vb = v + b * v_sb + (h / G) * v_sh;
   // the kv tiles this q tile reads: up to its last row's diagonal
-  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int k_end = causal ? min(Skv, q_off + q0 + BQ) : Skv;
   const int n_kt = (k_end + BK - 1) / BK;
 
-  stage<T, D>(s_q, qb + (int64_t)q0 * q_ss, q_ss, 0, S - q0, tid);
-  stage<T, D>(s_k, kb, k_ss, 0, S, tid);
+  stage<T, D>(s_q, qb + (int64_t)q0 * q_ss, q_ss, 0, Sq - q0, tid);
+  stage<T, D>(s_k, kb, k_ss, 0, Skv, tid);
   __pipeline_commit();
 
   float m_i[RPT], l_i[RPT], acc[RPT][CPT];
@@ -193,7 +201,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = 0; t < n_kt; ++t) {
     const int k0 = t * BK;
-    stage<T, D>(s_v, vb + (int64_t)k0 * v_ss, v_ss, 0, S - k0, tid);
+    stage<T, D>(s_v, vb + (int64_t)k0 * v_ss, v_ss, 0, Skv - k0, tid);
     __pipeline_commit();
     __pipeline_wait_prior(1);        // q and this K tile have landed
     __syncthreads();
@@ -234,7 +242,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
         const int kp = k0 + tx + TX * j;
-        const bool live = kp < S && qp < S && (!causal || qp >= kp);
+        const bool live = kp < Skv && qp < Sq && (!causal || q_off + qp >= kp);
         s[i][j] = live ? s[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -255,8 +263,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __pipeline_wait_prior(0);        // this V tile has landed
     __syncthreads();                 // p visible; every thread is done with K
     if (t + 1 < n_kt) {
-      stage<T, D>(s_k, kb + (int64_t)(k0 + BK) * k_ss, k_ss, 0, S - k0 - BK,
-                  tid);
+      stage<T, D>(s_k, kb + (int64_t)(k0 + BK) * k_ss, k_ss, 0,
+                  Skv - k0 - BK, tid);
       __pipeline_commit();
     }
 
@@ -281,13 +289,13 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                 // V and p are rewritten next tile
   }
 
-  // 4. normalise and write the rows that exist ([B, S, H, D] contiguous)
+  // 4. normalise and write the rows that exist ([B, Sq, H, D] contiguous)
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int qp = q0 + ty + TY * i;
-    if (qp >= S) continue;
+    if (qp >= Sq) continue;
     const float lsum = fmaxf(l_i[i], 1e-30f);
-    T* orow = o + (((int64_t)b * S + qp) * H + h) * D;
+    T* orow = o + (((int64_t)b * Sq + qp) * H + h) * D;
 #pragma unroll
     for (int g = 0; g < NV; ++g)
 #pragma unroll
@@ -515,12 +523,13 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const void* tmap,
       : "memory");
 }
 
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(NT, 1)
 flash_attention_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
                               const __grid_constant__ CUtensorMap tm_v,
                               const bf16* __restrict__ q,
-                              bf16* __restrict__ o, int S, int H, int G,
+                              bf16* __restrict__ o, int Sq, int Skv,
+                              int q_off, int H, int G,
                               int64_t q_sb, int64_t q_ss, int64_t q_sh,
                               float scale, int causal) {
   constexpr int KS = D / 16;       // 16-wide k-steps of q . k
@@ -541,10 +550,12 @@ flash_attention_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
   const uint32_t bars =
       smem_addr(smem + 2 * STAGES * TB + BQ * q_ld<D>() * 2);
 
+  // at offset 0 (every whole prefill) both are constants of the build
+  if (!OFF) q_off = 0, Skv = Sq;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int k_end = causal ? min(Skv, q_off + q0 + BQ) : Skv;
   const int n_kt = (k_end + BK - 1) / BK;
 
   if (tid == 0) {
@@ -588,7 +599,7 @@ flash_attention_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
       for (int i = tid; i < BQ * VPR; i += NC) {
         const int r = i / VPR, c = i % VPR;
         bf16* d = s_q + r * q_ld<D>() + 8 * c;
-        if (q0 + r < S)
+        if (q0 + r < Sq)
           __pipeline_memcpy_async(d, qb + (int64_t)(q0 + r) * q_ss + 8 * c,
                                   16);
         else
@@ -631,9 +642,10 @@ flash_attention_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
       wait_all();
       pin(s);
 
-      // 2. scale (log2 units) and mask where the tile reaches past S or
+      // 2. scale (log2 units) and mask where the tile reaches past Skv or
       //    across the warp's diagonal; online-softmax update
-      const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > r0);
+      const bool masked =
+          k0 + BK > Skv || (causal && k0 + BK - 1 > q_off + r0);
       float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
       for (int n = 0; n < NN; ++n)
@@ -643,7 +655,7 @@ flash_attention_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
           if (masked) {
             const int kp = k0 + 8 * n + 2 * tq + (e & 1);
             const int qp = r0 + gr + 8 * (e >> 1);
-            if (kp >= S || (causal && kp > qp)) x = NEG_INF;
+            if (kp >= Skv || (causal && kp > q_off + qp)) x = NEG_INF;
           }
           s[4 * n + e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -700,7 +712,7 @@ flash_attention_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
       if (lane == 0) mbar_arrive(bars + 8 * (STAGES + st));  // stage free
     }
 
-    // 4. normalise and write the rows that exist ([B, S, H, D] contiguous)
+    // 4. normalise and write the rows that exist ([B, Sq, H, D] contiguous)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float l = l_i[i];
@@ -708,8 +720,8 @@ flash_attention_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const float lsum = fmaxf(l, 1e-30f);
       const int qp = r0 + gr + 8 * i;
-      if (qp >= S) continue;
-      bf16* orow = o + (((int64_t)b * S + qp) * H + h) * D + 2 * tq;
+      if (qp >= Sq) continue;
+      bf16* orow = o + (((int64_t)b * Sq + qp) * H + h) * D + 2 * tq;
 #pragma unroll
       for (int n = 0; n < NA / 4; ++n)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
@@ -763,21 +775,23 @@ int encode_map(CUtensorMap* tm, const void* base, int B, int S, int KVH,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KVH, const int64_t* st, float scale, int causal,
-           cudaStream_t stream) {
+           int Sq, int Skv, int q_off, int H, int KVH, const int64_t* st,
+           float scale, int causal, cudaStream_t stream) {
   CUtensorMap tm_k, tm_v;
-  int rc = encode_map(&tm_k, k, B, S, KVH, D, st[3], st[4], st[5]);
-  if (rc == 0) rc = encode_map(&tm_v, v, B, S, KVH, D, st[6], st[7], st[8]);
+  int rc = encode_map(&tm_k, k, B, Skv, KVH, D, st[3], st[4], st[5]);
+  if (rc == 0)
+    rc = encode_map(&tm_v, v, B, Skv, KVH, D, st[6], st[7], st[8]);
   if (rc != 0) return rc;
+  const auto kernel = q_off ? flash_attention_fwd_wg_kernel<D, true>
+                            : flash_attention_fwd_wg_kernel<D, false>;
   const size_t smem = smem_bytes<D>();
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_fwd_wg_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_attention_fwd_wg_kernel<D><<<grid, NT, smem, stream>>>(
-      tm_k, tm_v, (const bf16*)q, (bf16*)o, S, H, H / KVH, st[0], st[1],
-      st[2], scale, causal);
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  kernel<<<grid, NT, smem, stream>>>(tm_k, tm_v, (const bf16*)q, (bf16*)o,
+                                     Sq, Skv, q_off, H, H / KVH, st[0], st[1],
+                                     st[2], scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -786,34 +800,37 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 template <typename T, int D>
 int launch_typed(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int H, int KVH, const int64_t* st, float scale,
-                 int causal, cudaStream_t stream) {
+                 int Sq, int Skv, int q_off, int H, int KVH,
+                 const int64_t* st, float scale, int causal,
+                 cudaStream_t stream) {
   const size_t smem = smem_bytes<T, D>();
   // above 48 KB a block's dynamic shared memory must be allowed first
   const cudaError_t e = cudaFuncSetAttribute(
       flash_attention_fwd_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_attention_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, H / KVH, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Skv, q_off, H,
+      H / KVH, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      scale, causal);
   return (int)cudaGetLastError();
 }
 
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int KVH, int D, const int64_t* st, float scale,
-              int causal, cudaStream_t stream) {
+              int Sq, int Skv, int q_off, int H, int KVH, int D,
+              const int64_t* st, float scale, int causal,
+              cudaStream_t stream) {
   switch (D) {
     case 32:
-      return wg::launch<32>(q, k, v, o, B, S, H, KVH, st, scale, causal,
-                            stream);
+      return wg::launch<32>(q, k, v, o, B, Sq, Skv, q_off, H, KVH, st, scale,
+                            causal, stream);
     case 64:
-      return wg::launch<64>(q, k, v, o, B, S, H, KVH, st, scale, causal,
-                            stream);
+      return wg::launch<64>(q, k, v, o, B, Sq, Skv, q_off, H, KVH, st, scale,
+                            causal, stream);
     case 128:
-      return wg::launch<128>(q, k, v, o, B, S, H, KVH, st, scale, causal,
-                             stream);
+      return wg::launch<128>(q, k, v, o, B, Sq, Skv, q_off, H, KVH, st,
+                             scale, causal, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -821,18 +838,19 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 
 template <typename T>
 int launch_dim(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int KVH, int D, const int64_t* st, float scale,
-               int causal, cudaStream_t stream) {
+               int Sq, int Skv, int q_off, int H, int KVH, int D,
+               const int64_t* st, float scale, int causal,
+               cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_typed<T, 32>(q, k, v, o, B, S, H, KVH, st, scale, causal,
-                                 stream);
+      return launch_typed<T, 32>(q, k, v, o, B, Sq, Skv, q_off, H, KVH, st,
+                                 scale, causal, stream);
     case 64:
-      return launch_typed<T, 64>(q, k, v, o, B, S, H, KVH, st, scale, causal,
-                                 stream);
+      return launch_typed<T, 64>(q, k, v, o, B, Sq, Skv, q_off, H, KVH, st,
+                                 scale, causal, stream);
     case 128:
-      return launch_typed<T, 128>(q, k, v, o, B, S, H, KVH, st, scale,
-                                  causal, stream);
+      return launch_typed<T, 128>(q, k, v, o, B, Sq, Skv, q_off, H, KVH, st,
+                                  scale, causal, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -842,26 +860,28 @@ int launch_dim(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// Forward attention on `stream`.  q [B, S, H, D], k and v [B, S, KVH, D]
-// with element strides (batch, sequence, head) in `strides` = {q_sb, q_ss,
+// Forward attention on `stream`.  q [B, Sq, H, D], k and v [B, Skv, KVH,
+// D] with Skv = q_off + Sq (query row i at absolute position q_off + i),
+// element strides (batch, sequence, head) in `strides` = {q_sb, q_ss,
 // q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh}, the head dim contiguous; o is
-// a contiguous [B, S, H, D] of q's dtype.  dtype 0 = float32 (the FMA
+// a contiguous [B, Sq, H, D] of q's dtype.  dtype 0 = float32 (the FMA
 // kernel), 1 = bfloat16 (the tensor-core kernel).  Returns
 // cudaGetLastError() after the launch (0 on success).  The kernel does not
 // synchronise and allocates nothing.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int KVH, int D,
-                        const int64_t* strides, float scale, int causal,
-                        int dtype, void* stream) {
+                        int B, int Sq, int Skv, int q_off, int H, int KVH,
+                        int D, const int64_t* strides, float scale,
+                        int causal, int dtype, void* stream) {
   const auto st = (cudaStream_t)stream;
-  if (B < 1 || S < 1 || KVH < 1 || H % KVH != 0 || B * H > 65535)
+  if (B < 1 || Sq < 1 || q_off < 0 || Skv != q_off + Sq || KVH < 1 ||
+      H % KVH != 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_dim<float>(q, k, v, o, B, S, H, KVH, D, strides, scale,
-                             causal, st);
+    return launch_dim<float>(q, k, v, o, B, Sq, Skv, q_off, H, KVH, D,
+                             strides, scale, causal, st);
   if (dtype == 1)
-    return launch_tc(q, k, v, o, B, S, H, KVH, D, strides, scale, causal,
-                     st);
+    return launch_tc(q, k, v, o, B, Sq, Skv, q_off, H, KVH, D, strides,
+                     scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

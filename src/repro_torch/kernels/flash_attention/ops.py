@@ -16,8 +16,11 @@ kept in f32 as a bf16 hi/lo pair). The model's
 prefill does not come here on the CPU (``layers.prefill_attention``
 keeps the chunked path the JAX prefill computes). The kernel reads each
 query head's KV head in place, so the GQA repeat of the JAX op is never
-materialised. ``LAUNCHES["flash_attention"]`` counts the kernels'
-launches (one per call).
+materialised. With ``q_offset`` the queries are rows ``q_offset ..`` of a
+sequence whose keys are all given (a later chunk of a chunked prefill
+attending over the cache filled so far; the same kernels, their causal
+test and tile bounds moved by the offset). ``LAUNCHES["flash_attention"]``
+counts the kernels' launches (one per call).
 """
 from __future__ import annotations
 
@@ -40,10 +43,11 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError("flash_attention: " + msg)
 
 
-def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_offset: int = 0) -> None:
     """Raise ``ValueError`` on what the kernel does not take: one device
-    and dtype (f32 or bf16), q ``[B, S, H, D]`` and k, v ``[B, S,
-    KVH, D]`` with ``H % KVH == 0`` and D in :data:`HEAD_DIMS`, the head dim
+    and dtype (f32 or bf16), q ``[B, Sq, H, D]`` and k, v ``[B, q_offset +
+    Sq, KVH, D]`` with ``H % KVH == 0`` and D in :data:`HEAD_DIMS`, the head dim
     contiguous and every row on a 16-byte boundary: a 16-byte-aligned base
     and strides that are multiples of 16 bytes, which both the kernels'
     16-byte ``cp.async`` copies and TMA's tensor maps demand."""
@@ -51,9 +55,13 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
            "q, k and v must be [B, S, heads, D]")
     B, S, H, D = q.shape
     KVH = k.shape[2]
-    _check(k.shape == v.shape and k.shape[:2] == (B, S) and k.shape[3] == D,
-           f"k {tuple(k.shape)} and v {tuple(v.shape)} must be [B, S, KVH, "
-           f"D] with q's B, S and D {(B, S, D)}")
+    _check(isinstance(q_offset, int) and q_offset >= 0,
+           f"q_offset must be an int >= 0, not {q_offset!r}")
+    _check(k.shape == v.shape and k.shape[:2] == (B, q_offset + S)
+           and k.shape[3] == D,
+           f"k {tuple(k.shape)} and v {tuple(v.shape)} must be [B, q_offset "
+           f"+ Sq, KVH, D] with q's B, Sq and D {(B, S, D)} and q_offset "
+           f"{q_offset}")
     _check(B >= 1 and S >= 1 and KVH >= 1 and H % KVH == 0,
            f"H={H} query heads must group over KVH={KVH}")
     _check(B * H <= 65535, f"B * H = {B * H} exceeds the kernel's grid")
@@ -75,12 +83,13 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                f"{t.stride()})")
 
 
-def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
-    """Launch the kernel on checked CUDA tensors; returns o [B, S, H, D]."""
+def _launch(q, k, v, causal: bool, scale: float,
+            q_offset: int) -> torch.Tensor:
+    """Launch the kernel on checked CUDA tensors; returns o [B, Sq, H, D]."""
     from . import _build
 
     B, S, H, D = q.shape
-    KVH = k.shape[2]
+    KVH, Skv = k.shape[2], k.shape[1]
     lib = _build.load()
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
@@ -88,8 +97,9 @@ def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
-            KVH, D, ctypes.cast(strides, ctypes.c_void_p), float(scale),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S,
+            Skv, q_offset, H, KVH, D, ctypes.cast(strides, ctypes.c_void_p),
+            float(scale),
             int(causal), _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
@@ -101,15 +111,19 @@ def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
 @torch.no_grad()
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
-                        scale: Optional[float] = None) -> torch.Tensor:
-    """q: [B, S, Hq, D]; k, v: [B, S, KVH, D] with ``Hq % KVH == 0`` →
-    [B, S, Hq, D] in q's dtype; query head h attends over KV head
-    ``h // (Hq // KVH)``, as after the JAX op's ``jnp.repeat``.  ``scale``
-    defaults to ``1 / sqrt(D)``."""
-    check_inputs(q, k, v)
+                        scale: Optional[float] = None,
+                        q_offset: int = 0) -> torch.Tensor:
+    """q: [B, Sq, Hq, D]; k, v: [B, q_offset + Sq, KVH, D] with ``Hq % KVH
+    == 0`` → [B, Sq, Hq, D] in q's dtype; query head h attends over KV
+    head ``h // (Hq // KVH)``, as after the JAX op's ``jnp.repeat``, and
+    query row i sits at position ``q_offset + i`` (under ``causal`` it
+    sees keys ``0 .. q_offset + i``).  ``scale`` defaults to ``1 /
+    sqrt(D)``."""
+    check_inputs(q, k, v, q_offset)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        return flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                   q_offset=q_offset)
     if q.device.type == "cuda":
-        return _launch(q, k, v, causal, scale)
+        return _launch(q, k, v, causal, scale, q_offset)
     raise ValueError(f"flash_attention: no implementation for {q.device}")

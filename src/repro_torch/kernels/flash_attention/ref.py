@@ -7,7 +7,10 @@
   (``csrc/flash_attention.cu``), which is the Pallas ``_flash_kernel``'s:
   q, k and v cast to f32, scores masked to exactly ``-1e30``, the online
   softmax ``(m, l, acc)`` and the probabilities kept in f32, ``l`` clamped
-  at ``1e-30``, the output cast to q's dtype.  It walks the keys in blocks
+  at ``1e-30``, the output cast to q's dtype; with ``q_offset`` the
+  queries are rows ``q_offset ..`` of a sequence whose keys are all given
+  (k and v hold ``q_offset + Sq`` rows), as a later chunk of a chunked
+  prefill attends over the cache filled so far.  It walks the keys in blocks
   (never an ``[S, S]`` matrix, so it serves as the yardstick at 32k tokens
   on the card) and indexes KV heads in groups, without materialising the
   GQA repeat.  The kernel is held to this function on the card, and the op
@@ -59,41 +62,48 @@ def split_bf16(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 @torch.no_grad()
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, scale: Optional[float] = None,
-                        kv_block: int = 1024) -> torch.Tensor:
-    """q: [B, S, H, D]; k, v: [B, S, KVH, D] with ``H % KVH == 0`` (query
-    head h reads KV head ``h // (H // KVH)``, the order of the JAX op's
-    ``jnp.repeat``) → [B, S, H, D] in q's dtype.
+                        kv_block: int = 1024, q_offset: int = 0
+                        ) -> torch.Tensor:
+    """q: [B, Sq, H, D]; k, v: [B, q_offset + Sq, KVH, D] with ``H % KVH ==
+    0`` (query head h reads KV head ``h // (H // KVH)``, the order of the
+    JAX op's ``jnp.repeat``) → [B, Sq, H, D] in q's dtype; query row i
+    sits at position ``q_offset + i`` (causal: keys ``<= q_offset + i``).
 
     Keys are taken ``kv_block`` at a time; under ``causal`` a block only
     updates the query rows at or past its first key (the rows before it
     are wholly masked there, and a wholly masked block adds
     ``exp(-1e30 - m) = 0``)."""
-    return _flash_walk(q, k, v, causal, scale, kv_block, None)
+    return _flash_walk(q, k, v, causal, scale, kv_block, None, q_offset)
 
 
 @torch.no_grad()
 def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
-                           scale: Optional[float] = None, p_terms: int = 2
-                           ) -> torch.Tensor:
+                           scale: Optional[float] = None, p_terms: int = 2,
+                           q_offset: int = 0) -> torch.Tensor:
     """The bf16 tensor-core kernel's arithmetic, plainly: q, k, v rounded to
     bf16 (a no-op for bf16 inputs), 64-key tiles, and ``p @ v`` summed over
     the first ``p_terms`` of ``split_bf16(p)`` (2: hi and lo, as the
-    kernel; 1: p rounded once to bf16) → [B, S, H, D] in q's dtype."""
+    kernel; 1: p rounded once to bf16) → [B, Sq, H, D] in q's dtype
+    (``q_offset`` as in :func:`flash_attention_ref`)."""
     if p_terms not in (1, 2):
         raise ValueError(f"p_terms must be 1 or 2, not {p_terms}")
     bf = [t.to(torch.bfloat16) for t in (q, k, v)]
-    return _flash_walk(*bf, causal, scale, 64, p_terms).to(q.dtype)
+    return _flash_walk(*bf, causal, scale, 64, p_terms,
+                       q_offset).to(q.dtype)
 
 
-def _flash_walk(q, k, v, causal, scale, kv_block, p_terms):
+def _flash_walk(q, k, v, causal, scale, kv_block, p_terms, q_offset=0):
     """The online-softmax walk of :func:`flash_attention_ref`; ``p @ v``
     takes p in f32 (``p_terms`` None) or as the first ``p_terms`` bf16
     parts of :func:`split_bf16`."""
     B, S, H, D = q.shape
-    KVH = k.shape[2]
+    KVH, Skv = k.shape[2], k.shape[1]
     if H % KVH:
         raise ValueError(f"{H} query heads do not group over {KVH}")
+    if q_offset < 0 or Skv != q_offset + S:
+        raise ValueError(f"k and v hold {Skv} keys, not q_offset + Sq = "
+                         f"{q_offset} + {S}")
     G = H // KVH
     dev = q.device
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -102,14 +112,15 @@ def _flash_walk(q, k, v, causal, scale, kv_block, p_terms):
     l = torch.zeros((B, KVH, G, S), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KVH, G, S, D), dtype=torch.float32, device=dev)
     q_pos = torch.arange(S, device=dev)
-    for k0 in range(0, S, kv_block):
-        q0 = k0 if causal else 0              # first row this block reaches
+    for k0 in range(0, Skv, kv_block):
+        # first row this block reaches (row i sits at q_offset + i)
+        q0 = max(k0 - q_offset, 0) if causal else 0
         kf = k[:, k0:k0 + kv_block].float()   # [B, n, KVH, D]
         vf = v[:, k0:k0 + kv_block].float()
         k_pos = k0 + torch.arange(kf.shape[1], device=dev)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, q0:], kf) * scale
         if causal:
-            mask = q_pos[q0:, None] >= k_pos[None, :]
+            mask = q_offset + q_pos[q0:, None] >= k_pos[None, :]
             s = torch.where(mask, s, NEG_INF)
         m_prev = m[..., q0:]
         m_new = torch.maximum(m_prev, s.amax(-1))

@@ -1,8 +1,10 @@
-"""Dense decoder models of the port: configs, specs, seeded numpy init,
-prefill and dense / paged decode (the JAX package's ``models`` for the
-dense family)."""
+"""Decoder models of the port: configs, specs, seeded numpy init (and its
+streaming twin on the card), prefill, chunked prefill and dense / paged
+decode for the dense, MoE, hybrid and xLSTM families (the JAX package's
+``models``)."""
 from .common import Spec, count_params, init_params_numpy
 from .config import MambaConfig, ModelConfig, RunConfig
-from .convert import params_from_numpy
-from .model import (Model, init_decode_state, model_specs, n_superblocks,
+from .convert import init_params_on_device, params_from_numpy
+from .model import (Model, block_period, decode_state_shapes,
+                    init_decode_state, model_specs, n_superblocks,
                     padded_vocab)

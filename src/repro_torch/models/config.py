@@ -3,9 +3,9 @@
 
 ``ModelConfig`` describes an architecture (one per arch in
 ``repro_torch.configs``); ``RunConfig`` describes execution choices (dtypes,
-chunking, microbatching, sharding rule set).  The port reads
-``compute_dtype``, ``param_dtype``, ``attn_q_chunk`` and ``attn_kv_chunk``;
-the other fields are kept so that a config converts field for field.
+chunking, microbatching, sharding rule set).  Every field is kept so that a
+config converts field for field; the training and sharding fields wait for
+the port's training and distributed slices (ROADMAP A11, A12).
 """
 from __future__ import annotations
 

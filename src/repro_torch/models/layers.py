@@ -136,16 +136,19 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      *, causal: bool, rc: RunConfig) -> torch.Tensor:
-    """The prefill's attention, q [B, S, Hq, D] and k, v [B, S, Hkv, D]
-    from position 0: on the card one launch of the flash-attention kernel
+                      *, causal: bool, rc: RunConfig, q_offset: int = 0
+                      ) -> torch.Tensor:
+    """The prefill's attention, q [B, Sq, Hq, D] at positions ``q_offset
+    ..`` and k, v [B, q_offset + Sq, Hkv, D] from position 0 (``q_offset``
+    > 0: a later chunk of ``Model.prefill_chunked``): on the card one
+    launch of the flash-attention kernel
     (:func:`..kernels.flash_attention.flash_attention_gqa`, f32 or bf16),
     on the CPU :func:`chunked_attention` with ``rc``'s chunk sizes, as the
     JAX prefill computes it."""
     if q.device.type == "cuda":
-        return flash_attention_gqa(q, k, v, causal=causal)
+        return flash_attention_gqa(q, k, v, causal=causal, q_offset=q_offset)
     if q.device.type == "cpu":
-        return chunked_attention(q, k, v, causal=causal,
+        return chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
                                  q_chunk=rc.attn_q_chunk,
                                  kv_chunk=rc.attn_kv_chunk)
     raise ValueError(f"prefill_attention: no implementation for {q.device}")

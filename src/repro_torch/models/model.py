@@ -1,25 +1,42 @@
-"""Model assembly for the dense family: config → specs, prefill, decode.
+"""Model assembly: config → specs, prefill, chunked prefill, dense and
+paged decode.
 
-The port of the JAX package's ``models/model.py`` for ``family ==
-"dense"`` (the other families raise ``NotImplementedError``; ROADMAP A8
-ports their layers).  Parameters keep the JAX layout at every public
-function: ``{"embed" [V, d], "blocks": {"pos0": {...}}, "final_norm",
-"lm_head" [d, V]}`` with every block leaf stacked over layers.  PyTorch
-runs eagerly, so the JAX scan over the stack is a Python loop over layers.
+The port of the JAX package's ``models/model.py`` for the decoder
+families (``dense``, ``moe``, ``hybrid`` and ``xlstm``; the encoder and
+VLM input paths raise ``NotImplementedError``, ROADMAP A8c).  Layers are
+grouped into *superblocks* of ``block_period`` layers (the lcm of the
+architecture's interleave periods: jamba 8, xlstm 6, homogeneous 1), and a
+superblock's position j decides the layer's mixer (attention, Mamba,
+mLSTM or sLSTM) and FFN (SwiGLU MLP, MoE, or none).  Parameters keep the
+JAX layout at every public function: ``{"embed" [V, d], "blocks":
+{"pos{j}": {...}}, "final_norm", "lm_head" [d, V]}`` with every block leaf
+stacked over superblocks.  PyTorch runs eagerly, so the JAX scan over the
+stack is a Python loop over superblocks and positions.
 
-Decode state is updated in place (JAX returns a new pytree; here the KV
-cache or pool would otherwise be copied every step): ``decode_step`` and
-``decode_step_paged`` write the step's K/V into ``state`` and return it.
+Decode state is per position, stacked over superblocks: attention
+positions hold the dense KV cache ``{"k", "v"}`` (``[nsb, B, max_seq, KVH,
+D]``) or, in the paged step, the pools ``{"pool_k", "pool_v"}``; recurrent
+positions hold their layer's state (Mamba ``conv``/``ssm``, mLSTM
+``conv``/``C``/``n``/``m``, sLSTM ``c``/``n``/``m``/``h``).  It is updated
+in place (JAX returns a new pytree; here the cache or pool would otherwise
+be copied every step): ``decode_step``, ``decode_step_paged`` and
+``prefill_chunked`` write into ``state`` and return it.  Every attention
+position runs the port's kernels on the card: the flash-attention kernel
+in prefill (with a query offset in the later chunks of
+``prefill_chunked``), the paged kernel in ``decode_step_paged``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import layers as L
+from . import mamba as M
+from . import moe as MoE
+from . import xlstm as X
 from .._device import resolve_device
 from .common import Spec, count_params, init_params_numpy, tree_map
 from .config import ModelConfig, RunConfig
@@ -44,23 +61,73 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return _round_up(cfg.vocab, 256)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require_decoder(cfg: ModelConfig) -> None:
+    if cfg.family in ("encoder", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            "runs dense models only (MoE, Mamba, xLSTM and encoder layers "
-            "are ROADMAP A8)")
+            "runs the dense, moe, hybrid and xlstm families (the encoder "
+            "and VLM input paths, input_embeds / patch_embeds, are ROADMAP "
+            "A8c)")
+
+
+def block_period(cfg: ModelConfig) -> int:
+    if cfg.family == "hybrid":
+        return int(np.lcm(cfg.attn_every, cfg.moe_every))
+    if cfg.family == "xlstm" and cfg.slstm_every:
+        return cfg.slstm_every
+    return 1
 
 
 def n_superblocks(cfg: ModelConfig) -> int:
-    """Layers per stack (the dense family's block period is 1)."""
-    _require_dense(cfg)
-    return cfg.n_layers
+    _require_decoder(cfg)
+    per = block_period(cfg)
+    assert cfg.n_layers % per == 0, (cfg.n_layers, per)
+    return cfg.n_layers // per
 
 
 # ---------------------------------------------------------------------------
 # specs
 # ---------------------------------------------------------------------------
+
+def _mixer_kind(cfg: ModelConfig, j: int) -> str:
+    if cfg.family == "xlstm":
+        return "slstm" if cfg.is_slstm_layer(j) else "mlstm"
+    if cfg.family == "hybrid" and not cfg.is_attn_layer(j):
+        return "mamba"
+    return "attn"
+
+
+def _ffn_kind(cfg: ModelConfig, j: int) -> str:
+    if cfg.d_ff <= 0:
+        return "none"
+    return "moe" if cfg.is_moe_layer(j) else "mlp"
+
+
+def attn_positions(cfg: ModelConfig) -> List[int]:
+    """The superblock positions whose mixer is attention."""
+    return [j for j in range(block_period(cfg))
+            if _mixer_kind(cfg, j) == "attn"]
+
+
+def _position_specs(cfg: ModelConfig, rc: RunConfig, j: int) -> dict:
+    d = cfg.d_model
+    b: dict = {"ln1": Spec((d,), (None,), init="ones")}
+    mk = _mixer_kind(cfg, j)
+    if mk == "attn":
+        b["attn"] = L.attention_specs(cfg)
+    elif mk == "mamba":
+        b["mamba"] = M.mamba_specs(cfg)
+    elif mk == "mlstm":
+        b["mlstm"] = X.mlstm_specs(cfg)
+    elif mk == "slstm":
+        b["slstm"] = X.slstm_specs(cfg)
+    fk = _ffn_kind(cfg, j)
+    if fk != "none":
+        b["ln2"] = Spec((d,), (None,), init="ones")
+        b["moe" if fk == "moe" else "mlp"] = (
+            MoE.moe_specs(cfg, rc) if fk == "moe" else L.mlp_specs(cfg))
+    return b
+
 
 def _stack(tree: PyTree, n: int) -> PyTree:
     if isinstance(tree, dict):
@@ -70,20 +137,84 @@ def _stack(tree: PyTree, n: int) -> PyTree:
 
 
 def model_specs(cfg: ModelConfig, rc: RunConfig) -> dict:
-    _require_dense(cfg)
     d, V = cfg.d_model, padded_vocab(cfg)
-    block = {"ln1": Spec((d,), (None,), init="ones"),
-             "attn": L.attention_specs(cfg),
-             "ln2": Spec((d,), (None,), init="ones"),
-             "mlp": L.mlp_specs(cfg)}
+    nsb = n_superblocks(cfg)
+    blocks = {f"pos{j}": _position_specs(cfg, rc, j)
+              for j in range(block_period(cfg))}
     s: dict = {
         "embed": Spec((V, d), ("vocab", "embed"), init="embed", scale=0.02),
-        "blocks": _stack({"pos0": block}, n_superblocks(cfg)),
+        "blocks": _stack(blocks, nsb),
         "final_norm": Spec((d,), (None,), init="ones"),
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = Spec((d, V), ("embed", "vocab"))
     return s
+
+
+# ---------------------------------------------------------------------------
+# decode-state structure
+# ---------------------------------------------------------------------------
+
+def decode_state_shapes(cfg: ModelConfig, batch: int, max_seq: int,
+                        dtype=torch.bfloat16
+                        ) -> Dict[str, Dict[str, Tuple[tuple, torch.dtype]]]:
+    """``{pos: {name: (shape, dtype)}}`` of the decode state, stacked over
+    superblocks: KV caches and conv states in ``dtype`` (the compute
+    dtype), the recurrent ``ssm``, ``C``, ``n``, ``m``, ``c`` and ``h`` in
+    f32, as the JAX package keeps them."""
+    nsb = n_superblocks(cfg)
+    f32 = torch.float32
+    out: dict = {}
+    for j in range(block_period(cfg)):
+        mk = _mixer_kind(cfg, j)
+        if mk == "attn":
+            kv = ((nsb, batch, max_seq, cfg.n_kv_heads, cfg.head_dim), dtype)
+            out[f"pos{j}"] = {"k": kv, "v": kv}
+        elif mk == "mamba":
+            mc = cfg.mamba
+            d_in = mc.expand * cfg.d_model
+            out[f"pos{j}"] = {
+                "conv": ((nsb, batch, mc.d_conv - 1, d_in), dtype),
+                "ssm": ((nsb, batch, d_in, mc.d_state), f32)}
+        elif mk == "mlstm":
+            d_in = 2 * cfg.d_model
+            H = cfg.n_heads
+            dh = d_in // H
+            out[f"pos{j}"] = {
+                "conv": ((nsb, batch, 3, d_in), dtype),
+                "C": ((nsb, batch, H, dh, dh), f32),
+                "n": ((nsb, batch, H, dh), f32),
+                "m": ((nsb, batch, H), f32)}
+        elif mk == "slstm":
+            out[f"pos{j}"] = {key: ((nsb, batch, cfg.d_model), f32)
+                              for key in ("c", "n", "m", "h")}
+    return out
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
+                      dtype=torch.bfloat16, device="cuda") -> dict:
+    """Zero decode state for :meth:`Model.decode_step` on ``device`` (the
+    card unless ``"cpu"`` is asked for; raises without a card); the
+    xLSTM stabilisers ``m`` start at ``-1e30``, not 0."""
+    device = resolve_device(device)
+    state = {pos: {name: torch.zeros(shape, dtype=dt, device=device)
+                   for name, (shape, dt) in leaves.items()}
+             for pos, leaves in decode_state_shapes(cfg, batch, max_seq,
+                                                    dtype).items()}
+    for st in state.values():
+        if "m" in st and ("C" in st or "h" in st):
+            st["m"].fill_(X.NEG_INF)
+    return state
+
+
+def _write_state(dst: dict, i: int, new: dict) -> None:
+    """Superblock i's slice of the stacked state ``dst`` := ``new``."""
+    for key, val in new.items():
+        dst[key][i].copy_(val)
+
+
+def _slice_state(st: dict, i: int) -> dict:
+    return {key: val[i] for key, val in st.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -96,7 +227,7 @@ class Model:
     rc: RunConfig
 
     def __post_init__(self):
-        _require_dense(self.cfg)
+        _require_decoder(self.cfg)
 
     # ---- params ----
     def specs(self) -> dict:
@@ -109,6 +240,15 @@ class Model:
         """Seeded numpy weights (:func:`.common.init_params_numpy`)."""
         return init_params_numpy(self.specs(), seed=seed,
                                  dtype=self.rc.param_dtype)
+
+    def init_on_device(self, seed: int = 0, device="cuda") -> PyTree:
+        """The weights of :meth:`init_numpy`, drawn slice by slice and
+        stored in ``param_dtype`` on ``device`` (the card unless ``"cpu"``
+        is asked for): :func:`.convert.init_params_on_device`."""
+        from .convert import init_params_on_device
+        return init_params_on_device(self.specs(), seed=seed,
+                                     dtype=torch_dtype(self.rc.param_dtype),
+                                     device=device)
 
     @property
     def cdt(self) -> torch.dtype:
@@ -124,9 +264,11 @@ class Model:
                     else v) for k, v in params.items()}
 
     # ---- helpers ----
-    def _layer(self, params, i: int) -> dict:
+    def _sb(self, params, i: int) -> dict:
+        """Superblock i's parameters, ``{"pos{j}": {...}}``, in the
+        compute dtype."""
         cast = lambda a: a[i].to(self.cdt) if a.is_floating_point() else a[i]  # noqa: E731
-        return tree_map(cast, params["blocks"]["pos0"])
+        return tree_map(cast, params["blocks"])
 
     def _embed(self, params, tokens):
         return params["embed"].to(self.cdt)[tokens.long()]
@@ -142,64 +284,141 @@ class Model:
             logits = torch.where(pad, -1e9, logits.float())
         return logits
 
-    def _block_tail(self, p, x):
-        """Residual MLP half of a block."""
-        return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], self.cfg.rms_eps))
+    def _mixer(self, j: int, p: dict, h: torch.Tensor, state: dict):
+        """A recurrent position's mixer over h [B, S, d] from ``state`` (one
+        superblock's slice) → (out, new state)."""
+        cfg, sc = self.cfg, self.rc.scan_chunk
+        mk = _mixer_kind(cfg, j)
+        if mk == "mamba":
+            out, (cs, ss) = M.mamba_layer(
+                cfg, p["mamba"], h, scan_chunk=sc,
+                state=(state["conv"], state["ssm"]), return_state=True)
+            return out, {"conv": cs, "ssm": ss}
+        if mk == "mlstm":
+            st = X.MLSTMState(state["conv"], state["C"], state["n"],
+                              state["m"])
+            out, s = X.mlstm_layer(cfg, p["mlstm"], h, scan_chunk=sc,
+                                   state=st, return_state=True)
+            return out, {"conv": s.conv, "C": s.C, "n": s.n, "m": s.m}
+        if mk == "slstm":
+            st = X.SLSTMState(state["c"], state["n"], state["m"], state["h"])
+            out, s = X.slstm_layer(cfg, p["slstm"], h, scan_chunk=sc,
+                                   state=st, return_state=True)
+            return out, {"c": s.c, "n": s.n, "m": s.m, "h": s.h}
+        raise ValueError(mk)
+
+    def _ffn(self, j: int, p: dict, x: torch.Tensor) -> torch.Tensor:
+        """Residual FFN half of position j (none where ``d_ff == 0``)."""
+        fk = _ffn_kind(self.cfg, j)
+        if fk == "none":
+            return x
+        h = L.rms_norm(x, p["ln2"], self.cfg.rms_eps)
+        if fk == "moe":
+            return x + MoE.moe_ffn(self.cfg, self.rc, p["moe"], h)[0]
+        return x + L.mlp(p["mlp"], h)
+
+    def _layers(self, params, x: torch.Tensor, state: dict,
+                attend: Callable) -> torch.Tensor:
+        """x [B, S, d] through every superblock and position, as the JAX
+        package's ``_superblock``: the mixer (``attend(i, p_attn, st, h)``
+        → [B, S, d] at attention positions, which reads and writes
+        superblock i's slice of the position's state ``st`` itself; the
+        recurrent layer from its state slice, written back in place,
+        elsewhere), then the position's FFN."""
+        cfg = self.cfg
+        for i in range(n_superblocks(cfg)):
+            p_sb = self._sb(params, i)
+            for j in range(block_period(cfg)):
+                p, st = p_sb[f"pos{j}"], state[f"pos{j}"]
+                h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+                if _mixer_kind(cfg, j) == "attn":
+                    mix = attend(i, p["attn"], st, h)
+                else:
+                    mix, new = self._mixer(j, p, h, _slice_state(st, i))
+                    _write_state(st, i, new)
+                x = self._ffn(j, p, x + mix)
+        return x
+
+    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
+        return self._logits(params, L.rms_norm(x, params["final_norm"],
+                                               self.cfg.rms_eps))
 
     # ---- public passes ----
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor,
                 max_seq: Optional[int] = None):
-        """tokens [B, S] → (logits [B, S, V], decode state with the dense
-        KV cache ``{"pos0": {"k", "v"}}`` of ``[n_layers, B, max_seq, KVH,
-        D]`` filled to S tokens)."""
+        """tokens [B, S] → (logits [B, S, V], decode state filled to S
+        tokens: the dense KV cache ``{"k", "v"}`` of ``[nsb, B, max_seq,
+        KVH, D]`` at attention positions, each recurrent layer's state
+        after the S tokens at the others).  :meth:`prefill_chunked` in one
+        chunk."""
+        return self.prefill_chunked(params, tokens, n_chunks=1,
+                                    max_seq=max_seq)
+
+    @torch.no_grad()
+    def prefill_chunked(self, params, tokens: torch.Tensor, *,
+                        n_chunks: int, max_seq: Optional[int] = None):
+        """Sarathi-style chunked prefill: the S tokens in ``n_chunks``
+        passes of ``S / n_chunks``, each through every layer.  A chunk
+        writes its K/V into the cache prefix and attends over ``[0, off +
+        Sc)`` with its queries at ``off ..`` (the flash-attention kernel's
+        query offset on the card, ``chunked_attention`` on the CPU);
+        recurrent positions carry their state from chunk to chunk, and
+        each chunk's MoE dispatch takes its own capacity.  Returns
+        (logits [B, S, V], decode state) as :meth:`prefill`."""
         cfg, rc = self.cfg, self.rc
         B, S = tokens.shape
+        if S % n_chunks:
+            raise ValueError(f"{S} tokens do not split into {n_chunks} "
+                             "chunks")
+        Sc = S // n_chunks
         dev = tokens.device
-        max_seq = max_seq or S
-        x = self._embed(params, tokens)
-        positions = torch.arange(S, device=dev).expand(B, S)
-        shape = (n_superblocks(cfg), B, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        kc = torch.zeros(shape, dtype=self.cdt, device=dev)
-        vc = torch.zeros(shape, dtype=self.cdt, device=dev)
-        for i in range(n_superblocks(cfg)):
-            p = self._layer(params, i)
-            h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
-            q, k, v = L.attention_qkv(cfg, p["attn"], h, positions)
-            o = L.prefill_attention(q, k, v, causal=cfg.causal, rc=rc)
-            x = x + o.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"]
-            kc[i, :, :S] = k.to(self.cdt)
-            vc[i, :, :S] = v.to(self.cdt)
-            x = self._block_tail(p, x)
-        x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
-        return self._logits(params, x), {"pos0": {"k": kc, "v": vc}}
+        state = init_decode_state(cfg, B, max_seq or S, self.cdt, dev)
+        hidden = []
+        for off in range(0, S, Sc):
+            positions = (off + torch.arange(Sc, device=dev)).expand(B, Sc)
+
+            def attend(i, p, st, h, off=off, positions=positions):
+                q, k, v = L.attention_qkv(cfg, p, h, positions)
+                kc, vc = st["k"][i], st["v"][i]
+                kc[:, off:off + Sc] = k.to(kc.dtype)
+                vc[:, off:off + Sc] = v.to(vc.dtype)
+                o = L.prefill_attention(
+                    q, kc[:, :off + Sc].to(q.dtype),
+                    vc[:, :off + Sc].to(q.dtype), causal=cfg.causal, rc=rc,
+                    q_offset=off)
+                return o.reshape(B, Sc, cfg.q_dim) @ p["wo"]
+
+            hidden.append(self._layers(
+                params, self._embed(params, tokens[:, off:off + Sc]), state,
+                attend))
+        x = hidden[0] if n_chunks == 1 else torch.cat(hidden, dim=1)
+        return self._head(params, x), state
 
     @torch.no_grad()
     def decode_step(self, params, state, tokens: torch.Tensor,
                     kv_len: torch.Tensor):
         """One decode step against the dense KV cache: tokens [B, 1],
         kv_len [B] → (logits [B, 1, V], state).  Writes the step's K/V at
-        position ``kv_len`` of ``state`` in place."""
+        position ``kv_len`` and each recurrent layer's new state into
+        ``state`` in place."""
         cfg = self.cfg
         B = tokens.shape[0]
         dev = tokens.device
         kv_len = torch.as_tensor(kv_len, device=dev).long()
-        x = self._embed(params, tokens)
-        positions = kv_len[:, None]
         bidx = torch.arange(B, device=dev)
-        kc, vc = state["pos0"]["k"], state["pos0"]["v"]
-        for i in range(n_superblocks(cfg)):
-            p = self._layer(params, i)
-            h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
-            q, k, v = L.attention_qkv(cfg, p["attn"], h, positions)
-            kc[i, bidx, kv_len] = k[:, 0].to(kc.dtype)
-            vc[i, bidx, kv_len] = v[:, 0].to(vc.dtype)
-            o = L.decode_attention(q, kc[i].to(q.dtype), vc[i].to(q.dtype),
+
+        def attend(i, p, st, h):
+            q, k, v = L.attention_qkv(cfg, p, h, kv_len[:, None])
+            kc, vc = st["k"][i], st["v"][i]
+            kc[bidx, kv_len] = k[:, 0].to(kc.dtype)
+            vc[bidx, kv_len] = v[:, 0].to(vc.dtype)
+            o = L.decode_attention(q, kc.to(q.dtype), vc.to(q.dtype),
                                    kv_len + 1)
-            x = x + o.reshape(B, 1, cfg.q_dim) @ p["attn"]["wo"]
-            x = self._block_tail(p, x)
-        x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
-        return self._logits(params, x), state
+            return o.reshape(B, 1, cfg.q_dim) @ p["wo"]
+
+        x = self._layers(params, self._embed(params, tokens), state, attend)
+        return self._head(params, x), state
 
     @torch.no_grad()
     def decode_step_paged(self, params, state, tokens: torch.Tensor,
@@ -207,54 +426,46 @@ class Model:
                           page_size: int, K_classes: Sequence[int]):
         """One decode step against the PAGED KV cache (the paper's path).
 
-        ``state``: ``{"pos0": {"pool_k", "pool_v"}}`` of shape
-        ``[n_layers, n_pages, T, KVH, D]``; ``kv_len`` [B] and
-        ``block_tables`` [B, max_pages] (shared by all layers) are host
-        arrays; ``descriptors``: the per-class host tables of
-        ``kernels.paged_attention.ops.build_descriptors``, checked and
-        uploaded once for all layers.  Writes the step's K/V into the pools in
-        place; a batch slot whose page is ``-1`` (an inactive slot) writes
-        nothing — a raw index -1 would wrap to the last pool page, which a
-        live sequence may own."""
+        ``state``: as :meth:`decode_step`'s, but attention positions hold
+        ``{"pool_k", "pool_v"}`` of shape ``[nsb, n_pages, T, KVH, D]``;
+        ``kv_len`` [B] and ``block_tables`` [B, max_pages] (shared by all
+        layers) are host arrays; ``descriptors``: the per-class host tables
+        of ``kernels.paged_attention.ops.build_descriptors``, checked and
+        uploaded once for all layers (not at all where the model has no
+        attention position).  Writes the step's K/V into the pools and each
+        recurrent layer's new state into ``state`` in place; a batch slot
+        whose page is ``-1`` (an inactive slot) writes no K/V — a raw index
+        -1 would wrap to the last pool page, which a live sequence may own
+        — and steps its recurrent state on its junk token, as the
+        reference does (its slot is overwritten when a request is
+        admitted)."""
         cfg = self.cfg
         B = tokens.shape[0]
         dev = tokens.device
-        pool_k, pool_v = state["pos0"]["pool_k"], state["pos0"]["pool_v"]
-        n_pool = pool_k.shape[1]
         kv_host = np.asarray(kv_len.cpu() if isinstance(kv_len, torch.Tensor)
                              else kv_len, dtype=np.int64)
-        bt = np.asarray(block_tables)
-        prep = prepare_descriptors(descriptors, classes_of(K_classes),
-                                   n_pool, dev)
-        page_of = bt[np.arange(B), kv_host // page_size]
-        rows = np.flatnonzero(page_of >= 0)
-        rows_t = torch.from_numpy(rows).to(dev)
-        pages_t = torch.from_numpy(page_of[rows].astype(np.int64)).to(dev)
-        offs_t = torch.from_numpy(kv_host[rows] % page_size).to(dev)
-        lens_t = torch.from_numpy((kv_host + 1).astype(np.int32)).to(dev)
         positions = torch.from_numpy(kv_host).to(dev)[:, None]
-        x = self._embed(params, tokens)
-        for i in range(n_superblocks(cfg)):
-            p = self._layer(params, i)
-            h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
-            q, k, v = L.attention_qkv(cfg, p["attn"], h, positions)
-            pk, pv = pool_k[i], pool_v[i]
+        attn = attn_positions(cfg)
+        if attn:
+            n_pool = state[f"pos{attn[0]}"]["pool_k"].shape[1]
+            prep = prepare_descriptors(descriptors, classes_of(K_classes),
+                                       n_pool, dev)
+            page_of = np.asarray(block_tables)[np.arange(B),
+                                               kv_host // page_size]
+            rows = np.flatnonzero(page_of >= 0)
+            rows_t = torch.from_numpy(rows).to(dev)
+            pages_t = torch.from_numpy(page_of[rows].astype(np.int64)).to(dev)
+            offs_t = torch.from_numpy(kv_host[rows] % page_size).to(dev)
+            lens_t = torch.from_numpy((kv_host + 1).astype(np.int32)).to(dev)
+
+        def attend(i, p, st, h):
+            q, k, v = L.attention_qkv(cfg, p, h, positions)
+            pk, pv = st["pool_k"][i], st["pool_v"][i]
             pk[pages_t, offs_t] = k[rows_t, 0].to(pk.dtype)
             pv[pages_t, offs_t] = v[rows_t, 0].to(pv.dtype)
             o = paged_attention(q[:, 0].contiguous(), pk, pv, None, lens_t,
                                 page_size=page_size, descriptors=prep)
-            x = x + o.to(h.dtype).reshape(B, 1, cfg.q_dim) @ p["attn"]["wo"]
-            x = self._block_tail(p, x)
-        x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
-        return self._logits(params, x), state
+            return o.to(h.dtype).reshape(B, 1, cfg.q_dim) @ p["wo"]
 
-
-def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
-                      dtype=torch.bfloat16, device="cuda") -> dict:
-    """Zero dense KV cache for :meth:`Model.decode_step`, on ``device``
-    (the card unless ``"cpu"`` is asked for; raises without a card)."""
-    device = resolve_device(device)
-    shape = (n_superblocks(cfg), batch, max_seq, cfg.n_kv_heads,
-             cfg.head_dim)
-    return {"pos0": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                     "v": torch.zeros(shape, dtype=dtype, device=device)}}
+        x = self._layers(params, self._embed(params, tokens), state, attend)
+        return self._head(params, x), state

@@ -14,6 +14,13 @@ pieces meet end to end:
   preempt-and-requeue on pool exhaustion (vLLM-style), per-step
   descriptor counts (the analogue of TLB-miss counts).
 
+Attention positions of the model keep their K/V in the paged pools;
+recurrent positions (Mamba, mLSTM, sLSTM) keep one state per batch slot,
+which a request's prefill overwrites in its slot, as the JAX engine does.
+A model with no attention position (xLSTM) serves with no pool and never
+launches the paged kernel; the allocator's pages and the descriptor counts
+are kept all the same, as the JAX engine keeps them.
+
 The engine runs on the card unless ``device="cpu"`` is asked for (then the
 paged op takes its plain version).  Not ported yet: ``snapshot`` /
 ``restore`` (they need the checkpointer, ROADMAP A13).  Of the JAX
@@ -33,7 +40,8 @@ from ..kernels.paged_attention.ops import build_descriptors, dma_stats
 from ..kvcache.allocator import PagedKVAllocator
 from ..kvcache.block_table import choose_kernel_classes
 from ..models.common import tree_map
-from ..models.model import Model, n_superblocks
+from ..models.model import (Model, attn_positions, block_period,
+                            init_decode_state, n_superblocks)
 from .scheduler import KVScheduler
 
 
@@ -66,7 +74,10 @@ class ServingEngine:
         self.ec = ec
         self.params = model.compute_params(
             tree_map(lambda a: a.to(self.device), params))
+        assert self.cfg.family != "encoder", "encoder models don't decode"
         self.nsb = n_superblocks(self.cfg)
+        self.period = block_period(self.cfg)
+        self.attn = set(attn_positions(self.cfg))
         self.allocator = PagedKVAllocator(ec.num_pages,
                                           alloc_policy=ec.alloc_policy)
         self.sched = KVScheduler(self.allocator, ec.max_batch)
@@ -82,13 +93,22 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def _init_state(self):
+        """Pools for the attention positions, per-slot recurrent state (of
+        ``init_decode_state``) for the others."""
         cfg, ec = self.cfg, self.ec
         shape = (self.nsb, ec.num_pages, ec.page_size, cfg.n_kv_heads,
                  cfg.head_dim)
         dt = self.model.cdt
-        self.state = {"pos0": {
-            "pool_k": torch.zeros(shape, dtype=dt, device=self.device),
-            "pool_v": torch.zeros(shape, dtype=dt, device=self.device)}}
+        rec = init_decode_state(cfg, ec.max_batch, 8, dt, self.device)
+        self.state = {}
+        for j in range(self.period):
+            if j in self.attn:
+                self.state[f"pos{j}"] = {
+                    "pool_k": torch.zeros(shape, dtype=dt, device=self.device),
+                    "pool_v": torch.zeros(shape, dtype=dt,
+                                          device=self.device)}
+            else:
+                self.state[f"pos{j}"] = rec[f"pos{j}"]
 
     # ------------------------------------------------------------------
     def add_request(self, prompt: List[int], max_new_tokens: int = 16) -> int:
@@ -155,7 +175,8 @@ class ServingEngine:
     @torch.no_grad()
     def _prefill(self, rid: int):
         """Run prompt (+ any recompute-preempted generation) through the
-        model and write its KV into the sequence's pages."""
+        model, write its KV into the sequence's pages and its recurrent
+        states into its batch slot."""
         req = self.requests[rid]
         toks_list = req.prompt + req.generated
         toks = torch.tensor([toks_list], dtype=torch.long, device=self.device)
@@ -165,14 +186,21 @@ class ServingEngine:
         S = len(toks_list)
         n_full = -(-S // T)
         pages = torch.from_numpy(bt[:n_full].astype(np.int64)).to(self.device)
-        for key, pool_key in (("k", "pool_k"), ("v", "pool_v")):
-            kv = states["pos0"][key][:, 0, :S]           # [nsb, S, KVH, D]
-            pool = self.state["pos0"][pool_key]
-            padded = torch.zeros((self.nsb, n_full * T) + kv.shape[2:],
-                                 dtype=pool.dtype, device=self.device)
-            padded[:, :S] = kv
-            pool[:, pages] = padded.reshape(self.nsb, n_full, T,
-                                            *kv.shape[2:])
+        slot = self._slot_of(rid)
+        for j in range(self.period):
+            pos = f"pos{j}"
+            if j not in self.attn:
+                for key, val in states[pos].items():
+                    self.state[pos][key][:, slot] = val[:, 0]
+                continue
+            for key, pool_key in (("k", "pool_k"), ("v", "pool_v")):
+                kv = states[pos][key][:, 0, :S]          # [nsb, S, KVH, D]
+                pool = self.state[pos][pool_key]
+                padded = torch.zeros((self.nsb, n_full * T) + kv.shape[2:],
+                                     dtype=pool.dtype, device=self.device)
+                padded[:, :S] = kv
+                pool[:, pages] = padded.reshape(self.nsb, n_full, T,
+                                                *kv.shape[2:])
         # seed the first generated token greedily from the last position
         nxt = int(torch.argmax(logits[0, S - 1, : self.cfg.vocab]))
         req.generated.append(nxt)

@@ -20,7 +20,12 @@ of a row's windows over blocks, keep the -1e30 semantics of wholly masked
 windows, refuse a window index outside the pool, and serve the reduced
 InternLM2 token for token like the CPU.  The flash kernels must equal
 their plain version (bf16 also within one bf16 ulp), give the same bits
-twice and from strided views, and refuse rows off 16-byte boundaries.
+twice and from strided views, and refuse rows off 16-byte boundaries; at
+a query offset (the later chunks of a chunked prefill) they must equal
+their plain version and, causal, the whole call's rows bit for bit.  The
+reduced MoE, hybrid and xLSTM models must prefill, prefill in chunks and
+decode on the card as on the CPU, and serve as the JAX engine's fixture
+records.
 """
 import dataclasses
 
@@ -561,3 +566,134 @@ def test_model_prefill_on_card_runs_the_flash_kernel(cuda, monkeypatch):
         torch.testing.assert_close(state["pos0"][key].cpu(),
                                    want_state["pos0"][key], atol=5e-5,
                                    rtol=5e-5)
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill: the flash kernel at a query offset; the model families
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_kernel_at_a_query_offset_matches_plain(cuda, dtype, shape):
+    """Each of 4 chunks of a prefill (q's rows ``off ..``, k and v's first
+    ``off + Sc`` rows, ``q_offset = off``) through the kernel == the plain
+    version with the same offset, f32 within 5e-5 and bf16 within 2e-2;
+    one launch a chunk."""
+    from repro_torch.kernels.flash_attention import (
+        LAUNCHES, flash_attention_gqa, flash_attention_ref)
+    B, S, H, KVH, D, causal = shape
+    q, k, v = _flash_case(cuda, dtype, B, S, H, KVH, D, seed=3)
+    Sc = S // 4
+    for ci in range(4):
+        off = ci * Sc
+        qc, kc, vc = q[:, off:off + Sc], k[:, :off + Sc], v[:, :off + Sc]
+        n0 = LAUNCHES["flash_attention"]
+        got = flash_attention_gqa(qc, kc, vc, causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention"] == n0 + 1
+        want = flash_attention_ref(qc, kc, vc, causal=causal, q_offset=off)
+        assert got.shape == qc.shape
+        _assert_close(got, want, dtype, f"flash {shape} chunk {ci}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_offset_chunks_equal_the_whole_call(cuda, dtype):
+    """``q_offset=0`` gives the default call's bits, and every causal chunk
+    (on the 128-row q tiles or off them) gives the whole call's rows bit
+    for bit: a row walks the same key tiles in the same order, the tiles
+    past its diagonal wholly masked, which leaves its state as it was."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    q, k, v = _flash_case(cuda, dtype, 2, 512, 8, 2, 64, seed=4)
+    whole = flash_attention_gqa(q, k, v, causal=True)
+    assert torch.equal(whole, flash_attention_gqa(q, k, v, causal=True,
+                                                  q_offset=0))
+    for off, n in ((128, 128), (256, 128), (100, 77), (333, 179)):
+        got = flash_attention_gqa(q[:, off:off + n], k[:, :off + n],
+                                  v[:, :off + n], causal=True,
+                                  q_offset=off)
+        assert torch.equal(got, whole[:, off:off + n]), off
+
+
+def test_flash_wrapper_rejects_a_wrong_offset(cuda):
+    from repro_torch.kernels.flash_attention import (
+        LAUNCHES, flash_attention_gqa)
+    n0 = LAUNCHES["flash_attention"]
+    q, k, v = _flash_case(cuda, torch.bfloat16, 1, 64, 4, 2, 64)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_gqa(q[:, 32:], k, v, q_offset=16)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_gqa(q, k, v, q_offset=-1)
+    assert LAUNCHES["flash_attention"] == n0
+
+
+#: reduced families whose head dims the flash kernel takes (granite-moe's
+#: reduced head dim, 24, is not one of 32, 64, 128)
+FAMILIES = ("qwen2-moe-a2.7b", "jamba-1.5-large-398b", "xlstm-350m")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_families_prefill_and_decode_on_card_match_cpu(cuda, arch):
+    """A reduced model of each family (f32, TF32 off) on the card:
+    ``prefill``, ``prefill_chunked`` (two chunks, the second through the
+    kernel's query offset) and two dense decode steps give the CPU's
+    logits and states within 1e-4; every attention layer's prefill
+    launches the flash kernel once a chunk."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.models import Model, RunConfig, params_from_numpy
+    from repro_torch.models.common import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(get_config(arch, reduced=True),
+                  RunConfig(compute_dtype="float32", scan_chunk=16,
+                            attn_q_chunk=32, attn_kv_chunk=32))
+    cpu = model.compute_params(params_from_numpy(model.init_numpy(0),
+                                                 device="cpu"))
+    gpu = tree_map(lambda a: a.to(cuda), cpu)
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, model.cfg.vocab, size=(2, 36)))
+    tol = dict(atol=1e-4, rtol=1e-4)
+    for run in (lambda p, t: model.prefill(p, t, max_seq=40),
+                lambda p, t: model.prefill_chunked(p, t, n_chunks=2,
+                                                   max_seq=40)):
+        want_l, want_s = run(cpu, toks)
+        n0 = LAUNCHES["flash_attention"]
+        got_l, got_s = run(gpu, toks.to(cuda))
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention"] - n0 in (
+            model.cfg.n_attn_layers, 2 * model.cfg.n_attn_layers)
+        torch.testing.assert_close(got_l.cpu(), want_l, **tol)
+        for pos in want_s:
+            for key in want_s[pos]:
+                torch.testing.assert_close(got_s[pos][key].cpu(),
+                                           want_s[pos][key], **tol)
+    for step in range(2):
+        nxt = torch.tensor([[5 + step], [9]])
+        lens = torch.tensor([36 + step, 36 + step])
+        want_l, want_s = model.decode_step(cpu, want_s, nxt, lens)
+        got_l, got_s = model.decode_step(gpu, got_s, nxt.to(cuda),
+                                         lens.to(cuda))
+        torch.testing.assert_close(got_l.cpu(), want_l, **tol)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_families_serve_on_card_like_the_jax_engine(cuda, arch):
+    """``chip_smoke.py``'s phase M1 for one model: the engine on the card
+    (f32, TF32 off) equals the JAX engine's fixture — tokens past the
+    margin, logits within 1e-3, K and the descriptor counts exactly — and
+    launches the paged kernel only where the model has attention."""
+    import importlib.util
+    import json
+    from pathlib import Path
+    from repro_torch.kernels.paged_attention import LAUNCHES
+    repo = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  repo / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = json.loads((repo / "tests" / "data" /
+                      "port_family_reference.json").read_text())
+    n0 = LAUNCHES["paged_attention"]
+    res = cs.serve_against_fixture(rec["models"][arch], cuda)
+    assert res["max_abs_err"] <= cs.LOGIT_ATOL
+    assert (LAUNCHES["paged_attention"] > n0) == (arch != "xlstm-350m")

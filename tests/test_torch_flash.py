@@ -284,8 +284,8 @@ def test_chip_smoke_flash_vs_plain_catches_a_misweighted_long_walk(
     cs = _chip_smoke()
     q, k, v = cs.flash_inputs((1, 1024, 2, 1, 32), torch.bfloat16, "cpu")
 
-    def misweighted(q, k, v, *, causal=True):
-        o = flash_attention_ref(q, k, v, causal=causal)
+    def misweighted(q, k, v, *, causal=True, q_offset=0):
+        o = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
         o[:, 512:] = (o[:, 512:].float() * 1.03).to(o.dtype)
         return o
     monkeypatch.setattr(fa, "flash_attention_gqa", misweighted)
@@ -399,6 +399,41 @@ def test_chip_smoke_kernel_rows_expects_each_kernel_of_a_launch(
         cs.device_ms(fn, 4, lambda: None, cs.PA_KERNELS, "paged_attention")
 
 
+def test_chip_smoke_kernel_rows_names_the_flush_once(monkeypatch):
+    """The flush's kernels are named by the first profile that records
+    them and reused: a later call whose flush profiles record nothing
+    still times the kernel; a first call whose flush profiles all record
+    nothing raises."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+    counts = dict(flash_attention=0)
+    monkeypatch.setattr(cs, "launch_counts", lambda: dict(counts))
+    flush_seen = [True]
+
+    def fake_times(f):
+        n0 = counts["flash_attention"]
+        f()
+        n = counts["flash_attention"] - n0
+        rows = {"fill": [0.01, 1]} if flush_seen[0] or n else {}
+        if n:
+            rows["flash_attention_fwd_kernel"] = [2.0 * n, n]
+        return rows
+    monkeypatch.setattr(cs, "_kernel_times", fake_times)
+
+    def fn():
+        counts["flash_attention"] += 1
+
+    def flush():
+        pass
+    args = (fn, 2, flush, "flash_attention_fwd", "flash_attention")
+    assert list(cs.kernel_rows(*args)) == ["flash_attention_fwd_kernel"]
+    flush_seen[0] = False
+    assert list(cs.kernel_rows(*args)) == ["flash_attention_fwd_kernel"]
+    cs._FLUSH_NAMES.clear()
+    with pytest.raises(ValueError, match="L2 flush"):
+        cs.kernel_rows(*args)
+
+
 #: what ``cuobjdump -sass`` prints, cut down: the flash kernels at a few
 #: head dims (wgmma products in bf16, FMAs in f32)
 SASS = """
@@ -418,7 +453,8 @@ SASS = """
 """
 
 
-@pytest.mark.parametrize("case", ["ok", "bf16_on_cuda_cores", "f32_tf32"])
+@pytest.mark.parametrize("case", ["ok", "bf16_on_cuda_cores", "f32_tf32",
+                                  "offset_template"])
 def test_chip_smoke_flash_sass_mix(case):
     """Phase 1's SASS line: HGMMA, HMMA and FFMA counted per
     instantiation (predicated and dotted opcodes too); a bf16 kernel
@@ -430,6 +466,15 @@ def test_chip_smoke_flash_sass_mix(case):
         sass = sass.replace("HGMMA.64x64x16.F32.BF16", "FFMA")
     elif case == "f32_tf32":
         sass = sass.replace("FMUL R2", "HMMA.1684.F32.TF32 R2")
+    elif case == "offset_template":
+        # the bf16 kernel built for offset 0 (Lb0) and a runtime offset
+        sass = sass.replace("kernelILi128EEEv", "kernelILi128ELb0EEEv")
+        sass = sass.replace("kernelILi64EEEv", "kernelILi128ELb1EEEv")
+        assert cs.flash_sass_mix(sass) == {
+            "bf16 D=128": {"HGMMA": 2, "HMMA": 0, "FFMA": 1},
+            "bf16 D=128 q_off": {"HGMMA": 2, "HMMA": 0, "FFMA": 0},
+            "f32 D=128": {"HGMMA": 0, "HMMA": 0, "FFMA": 2}}
+        return
     if case != "ok":
         with pytest.raises(ValueError, match="bf16|f32"):
             cs.flash_sass_mix(sass)
@@ -438,3 +483,99 @@ def test_chip_smoke_flash_sass_mix(case):
         "bf16 D=128": {"HGMMA": 2, "HMMA": 0, "FFMA": 1},
         "bf16 D=64": {"HGMMA": 2, "HMMA": 0, "FFMA": 0},
         "f32 D=128": {"HGMMA": 0, "HMMA": 0, "FFMA": 2}}
+
+
+# ---------------------------------------------------------------------------
+# A query offset: the later chunks of a chunked prefill
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 40), (True, 96),
+                                             (False, 40)])
+def test_flash_ref_at_a_query_offset_matches_jax_chunked_attention(
+        causal, q_offset):
+    """q at positions ``q_offset ..`` over ``q_offset + Sq`` keys: the op
+    (on the CPU, the kernel's plain version) equals the JAX package's
+    ``chunked_attention`` with the same ``q_offset`` (what its
+    ``prefill_chunked`` computes), and the tensor-core arithmetic stays
+    within one bf16 ulp of it."""
+    from repro.models import layers as JL
+    rng = np.random.default_rng(q_offset)
+    q = rng.standard_normal((2, 72, 4, 32)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 72 + q_offset, 2, 32)).astype(np.float32)
+            for _ in range(2))
+    want = JL.chunked_attention(*_j(q, k, v), causal=causal,
+                                q_offset=q_offset, q_chunk=32, kv_chunk=16)
+    got = flash_attention_gqa(*_t(q, k, v), causal=causal,
+                              q_offset=q_offset)
+    _close(got, want, TOL)
+    qb, kb, vb = _t(q, k, v, dtype=torch.bfloat16)
+    plain = flash_attention_ref(qb, kb, vb, causal=causal, q_offset=q_offset)
+    tc = flash_attention_tc_ref(qb, kb, vb, causal=causal, q_offset=q_offset)
+    assert _ulp_used(tc, plain) <= 1
+
+
+def test_flash_op_rejects_a_wrong_offset():
+    q, k, v = _t(*_inputs(1, 32, 4, 2, 64, seed=6))
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_gqa(q[:, 16:], k, v, q_offset=8)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_gqa(q, k, v, q_offset=-1)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_ref(q[:, 16:], k, v, q_offset=8)
+
+
+def test_chip_smoke_flash_bound_counts_the_work_at_an_offset():
+    """A chunk of Sq rows at ``q_offset`` over ``q_offset + Sq`` keys:
+    ``Sq q_offset + Sq (Sq + 1) / 2`` causal pairs, q and o for Sq rows,
+    k and v for all the keys; offset 0 is the whole prefill's count."""
+    cs = _chip_smoke()
+    _, _, n_bytes, flops, _, _ = cs.flash_bound(1, 8176, 16, 8, 128, 2,
+                                                q_offset=24528)
+    assert flops == 4 * 128 * 16 * (8176 * 24528 + 8176 * 8177 // 2)
+    assert n_bytes == 2 * 128 * (2 * 16 * 8176 + 2 * 8 * 32704)
+    assert cs.flash_bound(1, 3072, 16, 8, 128, 2, q_offset=0) == \
+        cs.flash_bound(1, 3072, 16, 8, 128, 2)
+    assert cs.flash_bound(1, 64, 2, 1, 32, 4, causal=False,
+                          q_offset=64)[3] == 4 * 32 * 2 * 64 * 128
+
+
+def test_chip_smoke_chunked_vs_plain_on_the_cpu():
+    """Phase C1's helper: every chunk at its offset equals the plain
+    version (here the op is the plain version: error 0), and causal chunks
+    give the whole call's rows bit for bit (non-causal ones are not
+    compared: a chunk sees only the keys before its end)."""
+    cs = _chip_smoke()
+    q, k, v = cs.flash_inputs((1, 512, 4, 2, 32), torch.bfloat16, "cpu")
+    qc, kc, vc, off = cs.chunk_of(q, k, v, 4, 3)
+    assert off == 384 and qc.shape[1] == 128 and kc.shape[1] == 512
+    res = cs.chunked_vs_plain(q, k, v, True, 4)
+    assert res["max_abs_err"] == 0.0 and len(res["chunks"]) == 4
+    assert res["bits_equal_whole"] == [True] * 4
+    q, k, v = cs.flash_inputs((1, 200, 4, 2, 32), torch.float32, "cpu")
+    res = cs.chunked_vs_plain(q, k, v, False, 4)
+    assert res["max_abs_err"] == 0.0 and res["bits_equal_whole"] == [None] * 4
+
+
+def test_chip_smoke_prefill_chunked_vs_whole_on_the_cpu(monkeypatch):
+    """Phase C2's check passes for the reduced InternLM2 (bf16) and
+    catches a chunked prefill whose KV cache is off."""
+    from repro_torch.models import Model
+    cs = _chip_smoke()
+    model = Model(get_config("internlm2-1.8b", reduced=True),
+                  RunConfig(attn_q_chunk=32, attn_kv_chunk=32))
+    params = model.compute_params(model.init_on_device(0, "cpu"))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, model.cfg.vocab, size=(1, 96)))
+    res = cs.prefill_chunked_vs_whole(model, params, toks, 4)
+    assert res["logits_max_abs_err"] <= cs.C2_LOGIT_ATOL
+    assert res["kv_limit_used"] <= 1 and res["chunked_flash_launches"] == 0
+    real = Model.prefill_chunked
+
+    def off_by_a_lot(self, *a, **kw):
+        logits, state = real(self, *a, **kw)
+        if kw["n_chunks"] > 1:       # prefill is prefill_chunked's 1 chunk
+            state["pos0"]["k"][1, 0, 50] += 1.0
+        return logits, state
+    monkeypatch.setattr(Model, "prefill_chunked", off_by_a_lot)
+    with pytest.raises(ValueError, match="KV cache"):
+        cs.prefill_chunked_vs_whole(model, params, toks, 4)
