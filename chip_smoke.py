@@ -22,7 +22,11 @@ The port has three main paths, each through its hand-written CUDA kernel:
 
 The MoE, Mamba-hybrid and xLSTM families run the same two attention
 kernels at their attention positions (none in the xLSTM); their MoE
-dispatch and recurrences are plain torch.
+dispatch and recurrences are plain torch.  The encoder (HuBERT) runs the
+flash kernel at head dim 80 in ``Model.forward(input_embeds=...)``, the
+VLM (LLaVA-NeXT) both kernels at 56 query heads over 8 KV heads; training
+(``repro_torch.train.Trainer``) runs no kernel: it differentiates the
+plain chunked attention, as the JAX package's training does.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  Phases, each fatal on failure:
@@ -176,27 +180,66 @@ M1. the reduced ``qwen2-moe-a2.7b``, ``jamba-1.5-large-398b`` and
     fixture, the weights checked against its digests; the flash kernel
     launched once per attention layer and prefill, the paged kernel only
     where the model has attention;
-M2. Qwen1.5-MoE-A2.7B at full width (24 layers, d_model 2048, 60 routed
-    experts top-4 plus 4 shared, vocab 151,936, 14.3 B parameters), its
-    weights drawn by the streaming initialiser into bf16 on the card, S3's
-    first 8 requests with answers capped at 32 tokens through S3's engine
-    configuration: every request finishes, 24 flash launches a prefill, a
+M2. Qwen1.5-MoE-A2.7B at full width (d_model 2048, 60 routed experts
+    top-4 plus 4 shared, vocab 151,936) and 12 of its 24 layers
+    (``M_LAYERS``: 7.5 B of its 14.3 B parameters), its weights drawn by
+    the streaming initialiser into bf16 on the card, S3's first 8 requests
+    with answers capped at 32 tokens through S3's engine configuration:
+    every request finishes, one flash launch a layer and prefill, a
     paged class k >= 1, coalesced descriptors, one decode step's class
     passes against their plain version, a profile of one decode step,
     peak memory; then a second, untimed engine run with the same tokens
     that records its routings, and every token against the dense-cache
     decode (``dense_check`` of a ``yardstick``: batched as the engine ran,
     f32 softmax weights, the engine's experts replayed);
-M3. xLSTM-350M at full width (24 layers, d_model 1024, sLSTM every 6th)
-    in bf16 with M2's requests: no pool, no flash or paged launch, every
+M3. xLSTM-350M at full width (d_model 1024, sLSTM every 6th) and 12 of
+    its 24 layers, in bf16 with M2's requests: no pool, no flash or paged launch, every
     token against the dense-cache decode as in M2; then in f32 (TF32 off)
     through the engine, each request decoded alone by the dense decode,
     every token equal past a 2e-3 margin;
+E1. the flash kernel at D = 80 against its plain version (``FLASH_SHAPES``
+    at D = 80 and HuBERT-XLarge's layer, 4 x 1,500 frames x 16 heads,
+    causal and not, f32 and bf16 as F1), then HuBERT-XLarge at full width
+    (48 layers, d_model 1,280, 16 heads of 80, non-causal, vocab 504;
+    seeded weights, a bf16 copy): ``Model.forward(input_embeds=...)`` on
+    4 x 1,500 frames (30 s of audio at 50 Hz): 48 flash launches, finite
+    logits within ``E1_LOGIT_ATOL`` of the same forward through the plain
+    chunked attention; the forward's wall, peak memory, and the kernel at
+    the layer's shape by CUDA events beside SDPA, its plain version and
+    its bound;
+T0. the reduced ``internlm2-1.8b`` and ``hubert-xlarge`` trained on the card
+    in f32 (TF32 off) by the port's ``Trainer``, ``DataPipeline`` and AdamW,
+    4 steps each, losses and grad norms against the JAX run in
+    ``tests/data/port_train_reference.json`` (``T0_LOSS_ATOL``,
+    ``T0_GNORM_RTOL``), no kernel launched;
+T1. HuBERT-XLarge trained at full width: f32 parameters (E1's), bf16
+    compute, AdamW, remat full, 8 x 1,024 frames in 2 microbatches, 6
+    steps with a checkpoint every 3, under
+    ``torch.use_deterministic_algorithms(True)``: straight through, then
+    with a ``SimulatedFailure`` at step 4 and a resume from the step-3
+    checkpoint, whose losses and grad norms must equal the straight run's
+    bit for bit; the step-time median, frames/s, peak memory, the
+    checkpoint's save and restore seconds, and a profile of one more step;
+V1. LLaVA-NeXT-34B at full width (60 layers, d_model 7,168, 56 / 8 heads,
+    d_ff 20,480, vocab 64,000, 2,880 patches; 34.4 B parameters drawn by
+    the streaming initialiser into bf16, 68.8 GB), every earlier model
+    freed first: one request of 2,880 patch embeddings and 128 text tokens
+    through ``Model.prefill(patch_embeds=...)`` (60 flash launches at H 56
+    / KVH 8), its logits and cache equal bit for bit to the prefill of the
+    same rows as ``input_embeds``, 16 greedy ``decode_step``s (the first
+    against the prefill of the prompt and its token); the flash kernel at
+    the request's layer shape timed as E1; then S3's first 4 requests
+    (text only: the engine takes no patches, as the JAX engine), answers
+    capped at 32, through ``ServingEngine``: the paged kernel at G = 7,
+    one step's class passes against their plain version and timed as S5,
+    every token against the batched dense decode as in M2; init, prefill
+    and decode-step times, peak memory;
 5. the kernel line (the TLB kernel's ``launches`` are phase 2's, its
    ``launches_by_path`` also W1's and W2's; the attention kernels'
-   ``launches_by_path`` also C1's comparisons, C2's and M1-M3's; the flash
-   line's ``at_q_offset`` C1's timing), the card line, and the ``{"ok":
-   true, ...}`` line.
+   ``launches_by_path`` also C1's comparisons, C2's, M1-M3's, E1's and
+   V1's; the flash line's ``at_q_offset`` C1's timing, ``at_d80`` E1's and
+   ``at_llava`` V1's, the paged line's ``at_v1_step`` V1's), the script's
+   wall, the card line, and the ``{"ok": true, ...}`` line.
 
 It exits non-zero, printing no result, without a card or outside a
 checkout of the repository.  The serving helpers below also run on the
@@ -342,6 +385,41 @@ FAMILY_REF_JSON = os.path.join(HERE, "tests", "data",
 # trace's answer lengths, to keep the phase short)
 M2_ARCH, M3_ARCH = "qwen2-moe-a2.7b", "xlstm-350m"
 M_REQUESTS, M_ANSWER_CAP = 8, 32
+# M2 and M3 run 12 of their 24 layers (a cut of depth, widths kept) so
+# that the whole script stays well inside its time limit beside E1-V1
+M_LAYERS = 12
+
+# ------------------------------- encoder, VLM and training, E1, T0, T1, V1
+TRAIN_REF_JSON = os.path.join(HERE, "tests", "data",
+                              "port_train_reference.json")
+# HuBERT-XLarge (arXiv:2106.07447) and LLaVA-NeXT-34B
+# (hf:llava-hf/llava-v1.6-34b-hf), both at full width
+E_ARCH, V_ARCH = "hubert-xlarge", "llava-next-34b"
+# E1: 4 clips of 30 s of audio at HuBERT's 50 Hz frame rate
+E1_BATCH, E1_FRAMES = 4, 1500
+# E1's forward against the same forward with attention by the plain
+# chunked attention (which rounds p to bf16 where the kernel keeps f32):
+# both bf16, 48 layers apart in the order and rounding of their sums, as
+# C2's chunked and whole prefills: within DENSE_MARGIN
+E1_LOGIT_ATOL = DENSE_MARGIN
+# T0 vs the JAX fixture, f32 on both sides (TF32 off): the same f32
+# function with its sums in another order.  AdamW moves a parameter by
+# about lr whatever the size of its gradient, so a sum that rounds the
+# other way for a near-zero gradient moves the next step's loss: the
+# limits are 2e-4 (about 0.2 lr over the 4 steps' updates) on losses and
+# on grad norms relative to theirs, where the port on the CPU comes
+# within 1.5e-6 and 1.5e-7
+T0_LOSS_ATOL, T0_GNORM_RTOL = 2e-4, 2e-4
+# T1: 8 clips of 20.48 s (1,024 frames) in 2 microbatches, 6 steps, a
+# checkpoint every 3, a failure injected at step 4
+T1_BATCH, T1_FRAMES, T1_MICRO = 8, 1024, 2
+T1_STEPS, T1_CKPT_EVERY, T1_FAIL_AT = 6, 3, 4
+# V1: LLaVA-NeXT's anyres image (2,880 patch embeddings) and 128 text
+# tokens, 16 greedy decode steps; then S3's first 4 requests (answers
+# capped at M_ANSWER_CAP) through an engine whose pool holds them at once
+# (1,024 pages: 4.0 GB over 60 layers)
+V1_TEXT, V1_DECODE, V1_SEED, V1_REQUESTS = 128, 16, 23, 4
+V1_ENGINE = dict(page_size=16, num_pages=1024, max_batch=4, max_seq=4096)
 
 
 def fail(msg: str) -> None:
@@ -1305,15 +1383,15 @@ def yardstick(model, tape=None):
                                     kv_len + 1)
                 return o.reshape(B, 1, cfg.q_dim) @ p["wo"]
 
-            x = self._layers(params, self._embed(params, tokens), state,
-                             attend)
+            x, _ = self._layers(params, self._embed(params, tokens), state,
+                                attend)
             return self._head(params, x), state
 
         def _ffn(self, j, p, x):
             if tape is None or "moe" not in p or x.shape[1] != 1:
                 return super()._ffn(j, p, x)
-            return x + tape.experts(cfg, self.rc, p["moe"],
-                                    L.rms_norm(x, p["ln2"], cfg.rms_eps))
+            h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
+            return x + tape.experts(cfg, self.rc, p["moe"], h), None
 
     return Yardstick(cfg, model.rc)
 
@@ -2032,6 +2110,10 @@ def flash_vs_plain(q, k, v, causal, q_offset=0):
 
 
 def main() -> int:
+    t_start = time.time()
+    # cuBLAS is deterministic only with a fixed workspace, which it reads
+    # when it starts (T1 runs with deterministic algorithms on)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -2059,7 +2141,8 @@ def main() -> int:
              "script from a checkout of the repository")
     if "jax" in sys.modules:
         fail("the port imported jax")
-    for ref_file in (REF_JSON, SERVE_REF_JSON, SCEN_REF_JSON):
+    for ref_file in (REF_JSON, SERVE_REF_JSON, SCEN_REF_JSON,
+                     FAMILY_REF_JSON, TRAIN_REF_JSON):
         if not os.path.exists(ref_file):
             fail(f"missing the JAX reference fixture {ref_file}")
     dev = torch.device("cuda", 0)
@@ -2315,6 +2398,9 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     fam_out = family_phases(torch, np, dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev).zero_
+    ev_out = encoder_vlm_phases(torch, np, dev, flush)
+    e1, v1 = ev_out["e1"], ev_out["v1"]
     fa["sass"] = sass_mix
     pa["at_f3_step"] = flash_out["f3"]["paged_layer"]["line"]
     m_launches = {tag: {k: sum(r["launches"][k]
@@ -2325,10 +2411,28 @@ def main() -> int:
     fa["launches_by_path"].update(
         C1_vs_plain=chunk_out["c1"]["launches"],
         C2=chunk_out["c2"]["chunked_flash_launches"],
-        **{tag: n["flash_attention"] for tag, n in m_launches.items()})
+        **{tag: n["flash_attention"] for tag, n in m_launches.items()},
+        E1_vs_plain=e1["vs_plain_launches"],
+        E1=e1["launches"]["flash_attention"],
+        V1_prefill=v1["prefill_launches"]["flash_attention"],
+        V1_engine=v1["engine"]["launches"]["flash_attention"])
     pa["launches_by_path"] = dict(
         S3=pa["launches"], F3=flash_out["f3"]["launches"]["paged_attention"],
-        **{tag: n["paged_attention"] for tag, n in m_launches.items()})
+        **{tag: n["paged_attention"] for tag, n in m_launches.items()},
+        V1=v1["engine"]["launches"]["paged_attention"])
+    pa["at_v1_step"] = v1["paged_layer"]["line"]
+    for key, t, errs in (("at_d80", e1["layer_timing"], e1["vs_plain"]),
+                         ("at_llava", v1["flash_layer"], None)):
+        fa[key] = dict(shape=t["shape"], ms=round(t["ms"], 5),
+                       plain_ms=round(t["plain_ms"], 4),
+                       bound_ms=round(t["bound_ms"], 6),
+                       bound_by=t["bound_by"],
+                       library_ms=round(t["library_ms"], 5))
+        if errs:
+            fa[key]["max_abs_err"] = max(
+                r["max_abs_err"] for k, r in errs.items() if "float32" in k)
+            fa[key]["max_abs_err_bf16"] = max(
+                r["max_abs_err"] for k, r in errs.items() if "bfloat16" in k)
     t = chunk_out["c1"]["timing"]
     fa["at_q_offset"] = {key: (round(t[key], 5) if isinstance(t[key], float)
                                else t[key])
@@ -2346,7 +2450,10 @@ def main() -> int:
         json.dump(dict(card=card, kernels=[tlb, pa, fa], tlb_sweep=tlb_out,
                        serving=serve_out, prefill=flash_out,
                        chunked_prefill=chunk_out, families=fam_out,
+                       encoder_vlm_training=ev_out,
                        flash_sass=sass_mix), f, indent=1, default=float)
+    print(f"chip_smoke wall {time.time() - t_start:.1f} s (the kernels' "
+          "build included)")
     print(json.dumps({"kernels": [tlb, pa, fa]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2931,6 +3038,12 @@ def prefill_chunked_vs_whole(model, params, toks, n_chunks, block=1024):
     return out
 
 
+def m_config(arch):
+    """M2's and M3's config: the published one at ``M_LAYERS`` layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=M_LAYERS)
+
+
 def family_requests(vocab):
     """M2's and M3's requests: S3's first ``M_REQUESTS``, answers capped at
     ``M_ANSWER_CAP`` tokens."""
@@ -3087,12 +3200,11 @@ def family_phases(torch, np, dev):
 def m3_phase(torch, np, dev):
     """M3: xLSTM-350M at full width through the engine, no attention; then
     the f32 witness."""
-    from repro_torch.configs import get_config
     from repro_torch.models import Model, RunConfig
     t0 = phase(f"M3. xLSTM-350M at full width, bf16: S3's first "
                f"{M_REQUESTS} requests, answers capped at {M_ANSWER_CAP} "
                "tokens (no attention position)")
-    model = Model(get_config(M3_ARCH), RunConfig(param_dtype="bfloat16"))
+    model = Model(m_config(M3_ARCH), RunConfig(param_dtype="bfloat16"))
     free_earlier_phases(torch)
     params = model.init_on_device(0, dev)
     m3 = serve_family(torch, np, dev, model, params, "M3")
@@ -3121,11 +3233,10 @@ def m3_f32_witness(torch, np, dev):
     decoded alone by the dense decode, every token equal wherever the
     dense top-2 gap exceeds ``2 * LOGIT_ATOL`` (f32 rounding at batch 1
     and 8 moves a logit by far less)."""
-    from repro_torch.configs import get_config
     from repro_torch.models import Model, RunConfig
     from repro_torch.serve import EngineConfig, ServingEngine
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = Model(get_config(M3_ARCH), RunConfig(compute_dtype="float32"))
+    model = Model(m_config(M3_ARCH), RunConfig(compute_dtype="float32"))
     params = model.init_on_device(0, dev)
     eng = ServingEngine(model, params, EngineConfig(**S3_ENGINE), device=dev)
     for p, n_new in family_requests(model.cfg.vocab):
@@ -3199,13 +3310,12 @@ def m1_phase(torch, dev):
 
 def m2_phase(torch, np, dev):
     """M2: Qwen1.5-MoE-A2.7B at full width through the engine."""
-    from repro_torch.configs import get_config
     from repro_torch.models import Model, RunConfig
     from repro_torch.serve import EngineConfig, ServingEngine
     t0 = phase("M2. Qwen1.5-MoE-A2.7B at full width, bf16 weights: S3's "
                f"first {M_REQUESTS} requests, answers capped at "
                f"{M_ANSWER_CAP} tokens")
-    model = Model(get_config(M2_ARCH), RunConfig(param_dtype="bfloat16"))
+    model = Model(m_config(M2_ARCH), RunConfig(param_dtype="bfloat16"))
     cfg = model.cfg
     free_earlier_phases(torch)
     t1 = time.time()
@@ -3363,6 +3473,634 @@ def batched_dense_check(dev, model, params, reqs, tag, tape=None):
           + f": {dc['equal']} of {dc['checked']} tokens equal, the rest "
           f"within {DENSE_MARGIN} (largest lead {dc['max_gap']:.4g})")
     return dc
+
+
+# ---------------------------------------------------------------------------
+# The encoder and VLM input paths and the training stack (E1, T0, T1, V1)
+# ---------------------------------------------------------------------------
+
+def flash_timing(torch, dev, shape, causal, flush, reps=20, plain_reps=3):
+    """The flash kernel at one layer's shape ``(B, S, H, KVH, D)``, bf16,
+    inputs from a seed: CUDA events behind a queued spin (median of
+    ``reps``, L2 flushed before each call), its plain version (median of
+    ``plain_reps``), one ``scaled_dot_product_attention`` call on the same
+    q and K/V repeated to H heads (``[B, H, S, D]``, the repeat excluded;
+    the library yardstick) and the bound."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import (flash_attention_gqa,
+                                                     flash_attention_ref)
+    B, S, H, KVH, D = shape
+    q, k, v = flash_inputs(shape, torch.bfloat16, dev, seed=1)
+    ms = cuda_time_ms(lambda: flash_attention_gqa(q, k, v, causal=causal),
+                      reps, flush)
+    plain = cuda_time_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
+                         plain_reps, flush)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+    lib = cuda_time_ms(sdpa, reps, flush)
+    b_ms, b_by, b_bytes, b_flops, b_tb, b_to = flash_bound(B, S, H, KVH, D,
+                                                           2, causal)
+    return dict(shape=dict(B=B, S=S, H=H, KVH=KVH, D=D, causal=causal),
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, bytes=b_bytes, flops=b_flops, bytes_ms=b_tb,
+                ops_ms=b_to, tflops=b_flops / (ms * 1e-3) / 1e12,
+                library=("scaled_dot_product_attention on the same q and "
+                         "K/V repeated to H heads, [B, H, S, D], repeat "
+                         "excluded"))
+
+
+def print_flash_timing(what, t):
+    print(f"{what}: kernel {t['ms']:.5f} ms (CUDA events behind a queued "
+          f"spin, {t['tflops']:.2f} Tflop/s), plain version "
+          f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.5f} ms; bound "
+          f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['flops']:.4g} flop"
+          f" = {t['ops_ms']:.5f} ms; {t['bytes']} B = {t['bytes_ms']:.5f} "
+          f"ms)")
+
+
+def train_against_fixture(rec, opt, trainer, device, ckpt_dir):
+    """T0 (and ``tests/test_torch_train.py`` on the CPU): one model of
+    ``tests/data/port_train_reference.json`` trained by the port's
+    ``Trainer``, ``DataPipeline`` and optimizer as the fixture's JAX run
+    was, checkpoints into ``ckpt_dir``.  The weight digest must equal the
+    fixture's; returns ``{"losses", "grad_norms", "aux", "loss_err",
+    "grad_norm_rel_err", "steps"}`` (the errors against the fixture)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline, PipelineConfig
+    from repro_torch.models import Model, RunConfig
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = get_config(rec["arch"], reduced=rec["reduced"])
+    model = Model(cfg, RunConfig(**rec["run_config"]))
+    host = model.init_numpy(rec["weight_seed"])
+    for name, want in rec["weight_digest"].items():
+        got = np.asarray(_digest_leaf(host, name)).reshape(-1)[:len(want)]
+        if [float(x) for x in got] != want:
+            raise ValueError(f"{rec['arch']}: weight leaf {name} differs "
+                             "from the fixture's draw")
+    del host
+    pipe = DataPipeline(cfg, PipelineConfig(**rec["pipeline"]),
+                        device=device)
+    try:
+        tr = Trainer(model, OptConfig(**opt),
+                     TrainerConfig(ckpt_dir=ckpt_dir, **trainer), pipe,
+                     device=device)
+        out = tr.run(seed=rec["weight_seed"])
+    finally:
+        pipe.close()
+    got = {m["step"]: m for m in out["metrics"]}
+    want = {s["step"]: s for s in rec["steps"]}
+    if sorted(got) != sorted(want):
+        raise ValueError(f"{rec['arch']}: steps {sorted(got)} logged, the "
+                         f"fixture has {sorted(want)}")
+    loss_err = max(abs(got[s]["loss"] - want[s]["loss"]) for s in want)
+    gn_err = max(abs(got[s]["grad_norm"] - want[s]["grad_norm"])
+                 / want[s]["grad_norm"] for s in want)
+    aux_err = max(abs(got[s]["aux"] - want[s]["aux"]) for s in want)
+    if loss_err > T0_LOSS_ATOL or aux_err > T0_LOSS_ATOL:
+        raise ValueError(f"{rec['arch']}: losses differ from JAX's by "
+                         f"{loss_err:.3g} (aux {aux_err:.3g}) > "
+                         f"{T0_LOSS_ATOL}")
+    if gn_err > T0_GNORM_RTOL:
+        raise ValueError(f"{rec['arch']}: grad norms differ from JAX's by "
+                         f"{gn_err:.3g} of theirs > {T0_GNORM_RTOL}")
+    return dict(losses=[got[s]["loss"] for s in sorted(want)],
+                grad_norms=[got[s]["grad_norm"] for s in sorted(want)],
+                aux=[got[s]["aux"] for s in sorted(want)],
+                loss_err=loss_err, grad_norm_rel_err=gn_err,
+                steps=sorted(want))
+
+
+def encoder_vlm_phases(torch, np, dev, flush):
+    """Phases E1, T0, T1 and V1; returns the numbers for
+    ``chip_smoke.json``."""
+    out = dict(e1=e1_phase(torch, np, dev, flush))
+    out["t0"] = t0_phase(torch, dev)
+    out["t1"] = t1_phase(torch, np, dev, out["e1"].pop("params"))
+    out["v1"] = v1_phase(torch, np, dev, flush)
+    return out
+
+
+def e1_phase(torch, np, dev, flush):
+    """E1: the flash kernel at D = 80 against its plain version, then
+    HuBERT-XLarge's encoder forward at full width; returns the numbers and
+    the model's f32 parameters (T1 trains them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, _batch_at
+    from repro_torch.models import Model, RunConfig
+    t0 = phase(f"E1. HuBERT-XLarge's encoder at full width: the flash kernel"
+               f" at D = 80, then Model.forward(input_embeds) on "
+               f"[{E1_BATCH}, {E1_FRAMES}, 1280]")
+    model = Model(get_config(E_ARCH), RunConfig())
+    cfg = model.cfg
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    layer = (E1_BATCH, E1_FRAMES, H, KVH, D)
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version
+    cases = [(f"test_kernels{i}", shape[:4] + (D,), shape[5], dt)
+             for i, shape in enumerate(FLASH_SHAPES)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(f"hubert layer causal={c}", layer, c, dt)
+              for c in (False, True)
+              for dt in (torch.float32, torch.bfloat16)]
+    errs = {}
+    reset_counts()
+    for name, shape, causal, dt in cases:
+        q, k, v = flash_inputs(shape, dt, dev)
+        try:
+            r = flash_vs_plain(q, k, v, causal)
+        except ValueError as e:
+            fail(f"E1 {name} {shape} {dt}: {e}")
+        errs[f"{name} {str(dt)[6:]}"] = r
+        print(f"{name} (B, S, H, KVH, D) = {shape} causal={causal} "
+              f"{str(dt)[6:]}: max abs err {r['max_abs_err']:.3g}, "
+              f"{100 * r['limit_used']:.1f} % of the "
+              + ("one-ulp limit" if dt == torch.bfloat16 else "5e-5 limit")
+              + ", the same bits twice")
+        del q, k, v
+    cmp_launches = launch_counts()["flash_attention"]
+    free_earlier_phases(torch)
+    t1 = time.time()
+    params = model.init_on_device(0, dev)
+    torch.cuda.synchronize()
+    t_init = time.time() - t1
+    cp = model.compute_params(params)
+    print(f"{model.n_params():,} parameters drawn in {t_init:.1f} s, f32 "
+          f"on the card, and a bf16 copy for the forward")
+    x = torch.from_numpy(_batch_at(cfg, PipelineConfig(
+        batch=E1_BATCH, seq=E1_FRAMES), 0)["input_embeds"]).to(dev)
+    walls = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        if i == 0:
+            reset_counts()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            logits, aux = model.forward(cp, input_embeds=x)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        if i == 0:
+            launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches["flash_attention"] != cfg.n_layers or \
+            launches["paged_attention"] or launches["tlb_sweep"]:
+        fail(f"E1: the forward launched {launches}; want "
+             f"{cfg.n_layers} flash launches and nothing else")
+    if tuple(logits.shape) != (E1_BATCH, E1_FRAMES, 512) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"E1: logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    # the same forward with attention by the plain chunked attention (the
+    # training forward, backbone(train=True), run without a graph)
+    class PlainAttention(Model):
+        def backbone(self, params, tokens=None, **kw):
+            return super().backbone(params, tokens, train=True, **kw)
+
+    with torch.no_grad():
+        plain_logits, _ = PlainAttention(cfg, model.rc).forward(
+            cp, input_embeds=x)
+    ref = plain_logits[..., :cfg.vocab].float()
+    diff = (logits[..., :cfg.vocab].float() - ref).abs()
+    err = float(diff.max())
+    rms = float(ref.square().mean().sqrt())
+    if err > E1_LOGIT_ATOL:
+        fail(f"E1: the flash forward's logits differ from the plain "
+             f"attention's by {err:.4g} > {E1_LOGIT_ATOL} (rms {rms:.4g})")
+    timing = flash_timing(torch, dev, layer, False, flush)
+    print(f"forward wall {statistics.median(walls):.3f} s median of "
+          f"{len(walls)} (host clock ending in a synchronise; first "
+          f"{walls[0]:.3f} s), launches {launches}, peak device memory "
+          f"{peak:.2f} GB; logits {tuple(logits.shape)} finite, within "
+          f"{err:.4g} of the forward through the plain chunked attention "
+          f"(<= {E1_LOGIT_ATOL}; logit rms {rms:.4g})")
+    print_flash_timing(f"one HuBERT layer (B, S, H, KVH, D) = {layer}, "
+                       "bf16, non-causal", timing)
+    print(f"({time.time() - t0:.1f} s in all)")
+    del logits, plain_logits, cp, x, diff, ref
+    torch.cuda.empty_cache()
+    return dict(vs_plain=errs, vs_plain_launches=cmp_launches,
+                init_s=t_init, forward_s=walls,
+                forward_median_s=statistics.median(walls),
+                launches=launches, peak_memory_gb=peak,
+                vs_plain_attention=dict(max_abs_err=err, rms=rms,
+                                        atol=E1_LOGIT_ATOL),
+                layer_timing=timing, params=params)
+
+
+def t0_phase(torch, dev):
+    """T0: the reduced InternLM2-1.8B and HuBERT-XLarge trained on the card
+    in f32 (TF32 off) by the port's Trainer, against the JAX fixture."""
+    import shutil
+    t0 = phase("T0. reduced internlm2-1.8b and hubert-xlarge trained on the "
+               "card in f32 (Trainer, AdamW), vs the JAX fixture")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = json.load(open(TRAIN_REF_JSON))
+    out = {}
+    for arch, rec in ref["models"].items():
+        d = os.path.join(HERE, "build", "ckpt_t0", arch)
+        shutil.rmtree(d, ignore_errors=True)
+        reset_counts()
+        try:
+            res = train_against_fixture(rec, ref["opt"], ref["trainer"], dev,
+                                        d)
+        except ValueError as e:
+            fail(f"T0 {arch}: {e}")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        res["launches"] = counts = launch_counts()
+        if any(counts.values()):
+            fail(f"T0 {arch}: training launched {counts}; no training path "
+                 "may reach a kernel (the flash kernel is a forward only)")
+        print(f"{arch}: {len(res['steps'])} steps, losses "
+              f"{[round(x, 6) for x in res['losses']]}, within "
+              f"{res['loss_err']:.3g} of JAX's (<= {T0_LOSS_ATOL}); grad "
+              f"norms within {res['grad_norm_rel_err']:.3g} of theirs (<= "
+              f"{T0_GNORM_RTOL}); no kernel launched")
+        out[arch] = res
+    print(f"({time.time() - t0:.1f} s in all)")
+    return out
+
+
+def profile_train_step(fn):
+    """Device time by kernel over one training step ``fn()``, from
+    ``torch.profiler``'s kernel events (CUDA activity alone: a step's
+    ~70,000 kernels with their host-side events took ~40 s to profile):
+    matrix products, fills (of new tensors: zeros, and the NaN fills of
+    deterministic algorithms), everything else, and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            r = rows.setdefault(ev.name, [0.0, 0])
+            r[0] += ev.time_range.elapsed_us() / 1e3
+            r[1] += 1
+    total = sum(r[0] for r in rows.values())
+
+    def gemm(n):
+        return any(w in n.lower() for w in ("gemm", "gemv", "nvjet", "xmma",
+                                            "cutlass", "sm90_"))
+    mm = sum(r[0] for n, r in rows.items() if gemm(n))
+    fill = sum(r[0] for n, r in rows.items()
+               if not gemm(n) and "fill" in n.lower())
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:12]
+    return dict(device_ms=total, matmul_ms=mm, fill_ms=fill, other_ms=total - mm - fill,
+                kernels=sum(r[1] for r in rows.values()),
+                top=[dict(name=n[:120], ms=r[0], count=r[1])
+                     for n, r in top])
+
+
+class _TimedCheckpointer:
+    """Wraps a Trainer's checkpointer: the seconds from each ``save`` call
+    to the ``wait`` that joins its write (the host copy and the file
+    writes; the trainer waits at once after its closing save)."""
+
+    def __init__(self, ckpt):
+        self._ckpt, self.saves, self._t = ckpt, [], None
+
+    def __getattr__(self, name):
+        return getattr(self._ckpt, name)
+
+    def save(self, *a, **kw):
+        self._ckpt.wait()
+        self._t = time.perf_counter()
+        self._ckpt.save(*a, **kw)
+        if kw.get("blocking"):
+            self.saves.append(time.perf_counter() - self._t)
+            self._t = None
+
+    def wait(self):
+        self._ckpt.wait()
+        if self._t is not None:
+            self.saves.append(time.perf_counter() - self._t)
+            self._t = None
+
+
+def t1_phase(torch, np, dev, params):
+    """T1: HuBERT-XLarge trained at full width (f32 parameters, bf16
+    compute, AdamW, remat full), straight through and through a failure
+    and a resume, deterministic algorithms on."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline, PipelineConfig
+    from repro_torch.models import Model, RunConfig
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import SimulatedFailure, Trainer, TrainerConfig
+    t0 = phase(f"T1. HuBERT-XLarge trained at full width: {T1_BATCH} x "
+               f"{T1_FRAMES} frames in {T1_MICRO} microbatches, "
+               f"{T1_STEPS} steps, a checkpoint every {T1_CKPT_EVERY}, a "
+               f"failure at step {T1_FAIL_AT} and a resume")
+    model = Model(get_config(E_ARCH), RunConfig(microbatches=T1_MICRO))
+    cfg = model.cfg
+    root = os.path.join(HERE, "build", "ckpt_t1")
+    shutil.rmtree(root, ignore_errors=True)
+    opt = OptConfig(lr=1e-4, warmup_steps=2, total_steps=T1_STEPS)
+    pc = PipelineConfig(batch=T1_BATCH, seq=T1_FRAMES, seed=7)
+    first = {"params": params}      # the straight run takes them over
+    del params
+
+    class T1Trainer(Trainer):
+        def init_state(self, seed=0):      # E1's draw, not a second one
+            from repro_torch.optim import init_opt
+            p = first.pop("params", None)
+            if p is None:
+                return super().init_state(seed)
+            return p, init_opt(self.opt_cfg, p), 0
+
+        def try_restore(self):
+            t = time.perf_counter()
+            r = super().try_restore()
+            torch.cuda.synchronize()
+            self.restore_s = time.perf_counter() - t if r else None
+            return r
+
+    def trainer(name, hook=None):
+        pipe = DataPipeline(cfg, pc, device=dev)
+        tr = T1Trainer(model, opt, TrainerConfig(
+            total_steps=T1_STEPS, ckpt_every=T1_CKPT_EVERY,
+            ckpt_dir=os.path.join(root, name), keep=1, log_every=1), pipe,
+            failure_hook=hook, device=dev)
+        tr.ckpt = _TimedCheckpointer(tr.ckpt)
+        return tr, pipe
+
+    def fail_at(step):
+        if step == T1_FAIL_AT:
+            raise SimulatedFailure(f"injected at step {step}")
+
+    free_earlier_phases(torch)
+    torch.use_deterministic_algorithms(True)
+    runs = {}
+    try:
+        straight, pipe = trainer("straight")
+        t1 = time.time()
+        out = straight.run()
+        runs["straight"] = dict(wall_s=time.time() - t1,
+                                saves_s=straight.ckpt.saves,
+                                metrics=out["metrics"])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # one more step from the straight run's state, profiled
+        batch = next(pipe)
+        pipe.close()
+        prof = profile_train_step(lambda: straight.train_step(
+            out["params"], out["opt"], batch, T1_STEPS))
+        del batch
+        del out, straight
+        shutil.rmtree(os.path.join(root, "straight"), ignore_errors=True)
+        # the failing run starts from the same draw: E1's parameters are
+        # gone into the straight run, so it draws them again (seed 0)
+        failing, pipe = trainer("resumed", fail_at)
+        t1 = time.time()
+        try:
+            failing.run()
+            fail("T1: the failure hook did not stop the run")
+        except SimulatedFailure:
+            pass
+        failing.ckpt.wait()
+        pipe.close()
+        runs["failing"] = dict(wall_s=time.time() - t1,
+                               saves_s=failing.ckpt.saves,
+                               metrics=failing.metrics_log)
+        del failing
+        resumed, pipe = trainer("resumed")
+        t1 = time.time()
+        out = resumed.run()
+        pipe.close()
+        runs["resumed"] = dict(wall_s=time.time() - t1,
+                               saves_s=resumed.ckpt.saves,
+                               restore_s=resumed.restore_s,
+                               metrics=out["metrics"])
+        del out, resumed
+    except RuntimeError as e:
+        fail(f"T1: {e}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    loss = {name: {m["step"]: m["loss"] for m in r["metrics"]}
+            for name, r in runs.items()}
+    gnorm = {name: {m["step"]: m["grad_norm"] for m in r["metrics"]}
+             for name, r in runs.items()}
+    if sorted(loss["resumed"]) != list(range(T1_CKPT_EVERY, T1_STEPS)):
+        fail(f"T1: the resumed run logged steps {sorted(loss['resumed'])}")
+    for name in ("failing", "resumed"):
+        for s, x in loss[name].items():
+            if x != loss["straight"][s] or \
+                    gnorm[name][s] != gnorm["straight"][s]:
+                fail(f"T1: the {name} run's step {s} (loss {x!r}, grad "
+                     f"norm {gnorm[name][s]!r}) differs from the straight "
+                     f"run's ({loss['straight'][s]!r}, "
+                     f"{gnorm['straight'][s]!r})")
+    vals = [v for r in runs.values() for m in r["metrics"]
+            for v in (m["loss"], m["grad_norm"])]
+    if not all(np.isfinite(vals)):
+        fail("T1: a loss or grad norm is not finite")
+    times = [m["time"] for m in runs["straight"]["metrics"]][1:]
+    step_s = statistics.median(times)
+    frames_s = T1_BATCH * T1_FRAMES / step_s
+    save_s = runs["straight"]["saves_s"][-1]
+    print(f"straight run: losses {[round(loss['straight'][s], 5) for s in sorted(loss['straight'])]}, "
+          f"grad norms {[round(gnorm['straight'][s], 4) for s in sorted(gnorm['straight'])]}; "
+          f"the failing run's steps 0-{T1_FAIL_AT - 1} and the resumed "
+          f"run's steps {T1_CKPT_EVERY}-{T1_STEPS - 1} equal them bit for "
+          "bit (deterministic algorithms on)")
+    print(f"step time median {step_s:.3f} s (steps 1-{T1_STEPS - 1}, host "
+          f"clock ending in the metrics' copy to the host; step 0 "
+          f"{runs['straight']['metrics'][0]['time']:.3f} s), "
+          f"{frames_s:,.0f} frames/s; peak device memory {peak:.2f} GB; "
+          f"checkpoint save {save_s:.2f} s (host copy and write of "
+          f"params + AdamW state), restore {runs['resumed']['restore_s']:.2f}"
+          f" s; walls straight {runs['straight']['wall_s']:.1f} s, failing "
+          f"{runs['failing']['wall_s']:.1f} s, resumed "
+          f"{runs['resumed']['wall_s']:.1f} s")
+    print(f"profiler, one more step: {prof['kernels']} kernels, device "
+          f"{prof['device_ms']:.1f} ms ({100 * prof['device_ms'] / 1e3 / step_s:.1f} "
+          f"% of the step median) = matmuls {prof['matmul_ms']:.1f} + "
+          f"fills {prof['fill_ms']:.1f} + other {prof['other_ms']:.1f} ms")
+    for r in prof["top"][:8]:
+        print(f"  {r['ms']:9.3f} ms  x{r['count']:<5d} {r['name']}")
+    print(f"({time.time() - t0:.1f} s in all)")
+    torch.cuda.empty_cache()
+    return dict(runs=runs, step_median_s=step_s, frames_per_s=frames_s,
+                peak_memory_gb=peak, save_s=save_s,
+                restore_s=runs["resumed"]["restore_s"],
+                deterministic=True, profile_step=prof)
+
+
+def v1_phase(torch, np, dev, flush):
+    """V1: LLaVA-NeXT-34B at full width: one patch-embedding request
+    through ``Model.prefill`` and 16 greedy dense decode steps, then four
+    text-only requests through the engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, RunConfig
+    from repro_torch.serve import EngineConfig, ServingEngine
+    t0 = phase(f"V1. LLaVA-NeXT-34B at full width, bf16 weights: "
+               f"{V1_TEXT} text tokens after the patch embeddings, "
+               f"{V1_DECODE} greedy steps; {V1_REQUESTS} text requests "
+               "through the engine")
+    model = Model(get_config(V_ARCH), RunConfig(param_dtype="bfloat16"))
+    cfg = model.cfg
+    free_earlier_phases(torch)
+    t1 = time.time()
+    params = model.init_on_device(0, dev)
+    torch.cuda.synchronize()
+    t_init = time.time() - t1
+    print(f"{model.n_params():,} parameters drawn slice by slice and stored "
+          f"in bf16 on the card in {t_init:.1f} s "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    out = dict(init_s=t_init, n_params=model.n_params(),
+               weights_gb=torch.cuda.memory_allocated() / 1e9)
+    # (a) one request with its patch embeddings
+    rng = np.random.default_rng(V1_SEED)
+    n_p, S = cfg.n_patches, cfg.n_patches + V1_TEXT
+    pe = torch.from_numpy(rng.standard_normal(
+        (1, n_p, cfg.d_model), dtype=np.float32) * 0.02).to(dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))).to(dev)
+    max_seq = S + V1_DECODE
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    logits, state = model.prefill(params, toks, patch_embeds=pe,
+                                  max_seq=max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    launches = launch_counts()
+    if launches["flash_attention"] != cfg.n_layers or \
+            launches["paged_attention"] or launches["tlb_sweep"]:
+        fail(f"V1: the prefill launched {launches}; want {cfg.n_layers} "
+             "flash launches")
+    ie = torch.cat([pe.to(model.cdt),
+                    params["embed"].to(model.cdt)[toks[:, n_p:]]], 1)
+    logits_ie, state_ie = model.prefill(params, None, input_embeds=ie,
+                                        max_seq=max_seq)
+    if not torch.equal(logits, logits_ie) or any(
+            not torch.equal(state[p][k], state_ie[p][k])
+            for p in state for k in state[p]):
+        fail("V1: the patch_embeds prefill and the input_embeds prefill of "
+             "the same rows differ")
+    del logits_ie, state_ie, ie
+    if not bool(torch.isfinite(logits[0, -1]).all()):
+        fail("V1: the prefill's last logits are not finite")
+    tok = logits[:, -1, :cfg.vocab].argmax(-1)
+    gen, dec_s, first_row = [int(tok)], [], None
+    for i in range(V1_DECODE):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, state = model.decode_step(params, state, tok[:, None],
+                                      torch.tensor([S + i], device=dev))
+        torch.cuda.synchronize()
+        dec_s.append(time.perf_counter() - t1)
+        if first_row is None:
+            first_row = lg[0, 0, :cfg.vocab].float()
+        tok = lg[:, 0, :cfg.vocab].argmax(-1)
+        gen.append(int(tok))
+    # the first decode step against the prefill of the prompt and its token
+    lg1, _ = model.prefill(params, torch.cat([toks, torch.tensor(
+        [[gen[0]]], device=dev)], 1), patch_embeds=pe)
+    want = lg1[0, -1, :cfg.vocab].float()
+    step_err = float((first_row - want).abs().max())
+    best = int(want.argmax())
+    lead = float(want[best] - want[gen[1]])
+    if best != gen[1] and lead > DENSE_MARGIN:
+        fail(f"V1: the first decode step's token {gen[1]} trails the "
+             f"extended prefill's top-1 {best} by {lead:.4g} > "
+             f"{DENSE_MARGIN}")
+    print(f"one request, {n_p} patch embeddings + {V1_TEXT} text tokens: "
+          f"prefill {prefill_s:.3f} s ({cfg.n_layers} flash launches at H "
+          f"{cfg.n_heads} / KVH {cfg.n_kv_heads}), logits and cache equal "
+          f"bit for bit to the input_embeds prefill of the same rows; "
+          f"{V1_DECODE} greedy decode steps, median "
+          f"{statistics.median(dec_s) * 1e3:.2f} ms, tokens {gen}; the "
+          f"first step's logits within {step_err:.4g} of the extended "
+          f"prefill's last row (its top-1 "
+          + ("equal)" if best == gen[1] else f"{best}, ahead by {lead:.4g} "
+             f"<= {DENSE_MARGIN})"))
+    out.update(prefill_s=prefill_s, prefill_launches=launches,
+               decode_s=dec_s, decode_median_s=statistics.median(dec_s),
+               tokens=gen, first_step_vs_prefill=dict(
+                   max_abs_err=step_err, top1_equal=best == gen[1]))
+    del logits, state, lg, lg1, pe, toks, first_row, want
+    torch.cuda.empty_cache()
+    out["flash_layer"] = timing = flash_timing(
+        torch, dev, (1, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim), True,
+        flush)
+    print_flash_timing(f"one LLaVA layer's prefill attention (B, S, H, KVH, "
+                       f"D) = {(1, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)}, bf16, causal",
+                       timing)
+    # (b) text-only requests through the engine (it takes no patches)
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    eng = ServingEngine(model, params, EngineConfig(**V1_ENGINE), device=dev)
+    probe = EngineProbe(model, eng)
+    eng.model = probe
+    requests = family_requests(cfg.vocab)[:V1_REQUESTS]
+    for p, n_new in requests:
+        eng.add_request(p, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.time()
+    m = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    counts = launch_counts()
+    pre = [t for _, t in probe.prefill_s]
+    by_class = {str(k): n for k, n in pa_ops.CLASS_LAUNCHES.items()}
+    print(f"engine: prompts {[len(p) for p, _ in requests]}, answers "
+          f"{[n for _, n in requests]} (S3's, capped at {M_ANSWER_CAP}); "
+          f"wall {wall:.2f} s, {m['steps']} steps, K={m['K']}, descriptor "
+          f"reduction {m['descriptor_reduction']:.4f}, stalled "
+          f"{m['stalled']}; launches {counts}, paged by class {by_class}; "
+          f"{len(pre)} prefills {sum(pre):.3f} s, decode steps median "
+          f"{statistics.median(probe.decode_s) * 1e3:.2f} ms")
+    if m["stalled"] or [len(eng.requests[i].generated)
+                        for i in range(len(requests))] != [
+                            n for _, n in requests]:
+        fail("V1: not every request finished with all its tokens")
+    if counts["flash_attention"] != cfg.n_layers * len(pre) or \
+            counts["paged_attention"] < 1 or counts["tlb_sweep"]:
+        fail(f"V1: {len(pre)} prefills and the decode steps launched "
+             f"{counts}")
+    if not any(int(k) >= 1 and n > 0 for k, n in by_class.items()):
+        fail("V1: the paged kernel did not run a class k >= 1")
+    step = max(probe.steps, key=lambda s: (int((s["lens"] > 0).sum()),
+                                           int(s["lens"].sum())))
+    try:
+        tp = time_class_passes(step, eng.state["pos0"]["pool_k"][0],
+                               eng.state["pos0"]["pool_v"][0], cfg.n_heads,
+                               flush)
+    except ValueError as e:
+        fail(f"V1 class passes at G = {cfg.n_heads // cfg.n_kv_heads}: {e}")
+    print_class_passes(f"an engine step, G = {cfg.n_heads // cfg.n_kv_heads}"
+                       f" (H {cfg.n_heads} over KVH {cfg.n_kv_heads})", tp)
+    reqs = [eng.requests[i] for i in range(len(requests))]
+    out.update(engine=dict(
+        wall_s=wall, steps=m["steps"], K=m["K"],
+        descriptor_reduction=m["descriptor_reduction"], launches=counts,
+        launches_by_class=by_class, prefills=len(pre),
+        prefill_s=sum(pre), decode_step_median_s=statistics.median(
+            probe.decode_s), prompt_lens=[len(p) for p, _ in requests],
+        answer_lens=[n for _, n in requests]), paged_layer=tp)
+    del eng, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dense_check"] = batched_dense_check(dev, model, params, reqs, "V1")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"peak device memory over the phase {out['peak_memory_gb']:.2f} "
+          f"GB ({time.time() - t0:.1f} s in all)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _eleven_specs(b):

@@ -1,1 +1,2 @@
-from .registry import ARCH_IDS, NOT_PORTED, get_config
+from .registry import (ARCH_IDS, SHAPES, ShapeSpec, all_cells, cell_status,
+                       get_config)

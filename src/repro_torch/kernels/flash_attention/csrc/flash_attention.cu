@@ -49,9 +49,11 @@
 //   thread owns 4 query rows and, for the scores, 8 keys: 32 scores from
 //   12 shared reads per 4 head-dim steps; for p @ v the same rows and D / 8
 //   output columns, so (m, l, acc) live in registers for the whole walk.
+//   At D = 80 four threads share a row (20 columns each, five float4
+//   groups), so that every thread's columns are whole groups of four.
 //   Bounded by the FMA rate.
 //
-// * bf16 (flash_attention_fwd_wg_kernel, D = 32, 64, 128): both products
+// * bf16 (flash_attention_fwd_wg_kernel, D = 32, 64, 80, 128): both products
 //   on the tensor cores by wgmma, bf16 operands and f32 accumulators, in
 //   blocks of 128 q rows per (b * H + h).  Two consumer warpgroups of 64
 //   rows issue S = Q K^T as m64n64k16 and O += P V as m64n{D}k16, A (Q,
@@ -84,7 +86,15 @@
 //   at D = 64 and 128 the 128-byte swizzle (64-key atoms of 128-byte rows,
 //   16-byte chunk c of row r at c ^ (r % 8)), at D = 32 the 64-byte one
 //   (64-byte rows, chunk c of row r at c ^ ((r / 2) % 4)); atoms start on
-//   1 KB boundaries.  K is read K-major, as it lies in memory; V through
+//   1 KB boundaries.  A D = 80 row (160 bytes) is no whole number of atoms:
+//   K and V are staged as D = 128, two 128-byte atoms whose columns 80 ..
+//   127 lie past the tensor map's inner extent of 80, so TMA fills them
+//   with zeros (the box's bytes still count in full on the barrier); q . k
+//   takes D / 16 = 5 k-steps and never reads them, and p @ v runs as at D
+//   = 128 (m64n128k16), its 48 extra output columns 0 * v = 0, dropped at
+//   the store.  Zero columns leave every f32 sum as it is; the cost is
+//   1.6x the p @ v work of D = 80 (a 64-column atom plus a 16-column one,
+//   with n = 64 and n = 16 products, would not pay it).  K is read K-major, as it lies in memory; V through
 //   wgmma's transpose bit (MN-major), so no transposed copy is made.
 //   Next steps (not here): ping-pong scheduling of the two consumer
 //   warpgroups, so that one's softmax overlaps the other's products.
@@ -99,14 +109,17 @@ namespace {
 constexpr int BQ = 64;            // query rows per block
 constexpr int BK = 64;            // keys per kv tile
 constexpr int NT = 128;           // threads per block
-constexpr int TX = 8;             // threads that share a query row
-constexpr int TY = NT / TX;       // row groups
-constexpr int RPT = BQ / TY;      // query rows per thread
-constexpr int KPT = BK / TX;      // keys per thread (scores)
 constexpr int PLD = BK + 4;       // row stride of the probabilities
 constexpr float NEG_INF = -1e30f;
 
 static_assert(BQ == BK, "one tile size stages q, k and v");
+
+// threads that share a query row: 8, or 4 where D / 8 columns a thread
+// would not be whole float4 groups (D = 80: 20 columns a thread)
+template <int D>
+__host__ __device__ constexpr int tx_of() {
+  return (D / 8) % 4 == 0 ? 8 : 4;
+}
 
 // row stride of a staged tile: D elements plus 16 bytes of padding
 template <typename T, int D>
@@ -125,14 +138,16 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// the 8 lanes of a row group are consecutive: xor 1, 2, 4 stays inside it,
-// and every lane gets the same bits
+// the TX lanes of a row group are consecutive: xor 1 .. TX / 2 stays
+// inside it, and every lane gets the same bits
+template <int TX>
 __device__ __forceinline__ float row_max(float x) {
 #pragma unroll
   for (int o = 1; o < TX; o <<= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
+template <int TX>
 __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
   for (int o = 1; o < TX; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -168,8 +183,15 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            int64_t k_sh, int64_t v_sb, int64_t v_ss,
                            int64_t v_sh, float scale, int causal) {
   constexpr int LD = tile_ld<T, D>();
+  constexpr int TX = tx_of<D>();    // threads that share a query row
+  constexpr int TY = NT / TX;       // row groups
+  constexpr int RPT = BQ / TY;      // query rows per thread
+  constexpr int KPT = BK / TX;      // keys per thread (scores)
   constexpr int CPT = D / TX;       // output columns per thread
   constexpr int NV = CPT / 4;       // ... in groups of four
+  static_assert(D % (4 * TX) == 0 && BK % TX == 0 && BQ % TY == 0,
+                "every output column, key and row has exactly one owner");
+  static_assert(D % 4 == 0, "scores step the head dim 4 at a time");
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_q = reinterpret_cast<T*>(smem);
   T* s_k = s_q + BQ * LD;
@@ -246,7 +268,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[i][j] = live ? s[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
-      const float m_new = fmaxf(m_i[i], row_max(mx));
+      const float m_new = fmaxf(m_i[i], row_max<TX>(mx));
       const float alpha = expf(m_i[i] - m_new);
       float sum = 0.f;
 #pragma unroll
@@ -255,7 +277,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s_p[row * PLD + tx + TX * j] = p;
         sum += p;
       }
-      l_i[i] = l_i[i] * alpha + row_sum(sum);
+      l_i[i] = l_i[i] * alpha + row_sum<TX>(sum);
       m_i[i] = m_new;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
@@ -322,15 +344,21 @@ template <int D>
 __host__ __device__ constexpr int cols() {
   return D < 64 ? D : 64;
 }
+// the head dim as K and V are staged: D rounded up to whole atoms (D = 80
+// in two 64-column atoms, whose columns 80 .. 127 TMA fills with zeros)
+template <int D>
+__host__ __device__ constexpr int dpad() {
+  return (D + cols<D>() - 1) / cols<D>() * cols<D>();
+}
 // one atom of a K or V tile: 64 rows of cols<D>() columns
 template <int D>
 __host__ __device__ constexpr int atom_bytes() {
   return BK * cols<D>() * 2;
 }
-// K or V tile: D / cols<D>() atoms
+// K or V tile: dpad<D>() / cols<D>() atoms
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  return BK * D * 2;
+  return BK * dpad<D>() * 2;
 }
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -462,12 +490,15 @@ __device__ __forceinline__ void wgmma_n32(float (&d)[16],
         "n"(TB));
 }
 
+// acc (64 x dpad<D>() f32) += a (p, 64 x 16) * v (16 x dpad<D>(), MN-major)
 template <int D>
-__device__ __forceinline__ void pv(float (&acc)[D / 2],
+__device__ __forceinline__ void pv(float (&acc)[dpad<D>() / 2],
                                    const uint32_t (&a)[4], uint64_t desc) {
-  if constexpr (D == 128)
+  static_assert(dpad<D>() == 128 || dpad<D>() == 64 || dpad<D>() == 32,
+                "p @ v is one m64n{32,64,128}k16 wgmma");
+  if constexpr (dpad<D>() == 128)
     wgmma_n128<1>(acc, a, desc, 1);
-  else if constexpr (D == 64)
+  else if constexpr (dpad<D>() == 64)
     wgmma_n64<1>(acc, a, desc, 1);
   else
     wgmma_n32<1>(acc, a, desc, 1);
@@ -533,7 +564,8 @@ flash_attention_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
                               int64_t q_sb, int64_t q_ss, int64_t q_sh,
                               float scale, int causal) {
   constexpr int KS = D / 16;       // 16-wide k-steps of q . k
-  constexpr int NA = D / 2;        // accumulator floats of o per thread
+  constexpr int NA = dpad<D>() / 2;  // accumulator floats of o per thread
+  static_assert(D % 16 == 0, "q . k steps the head dim 16 at a time");
   constexpr int TB = tile_bytes<D>();
   constexpr int ATOM = atom_bytes<D>();
   constexpr int ROW = cols<D>() * 2;   // bytes of an atom's row
@@ -579,7 +611,7 @@ flash_attention_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
         const uint32_t full = bars + 8 * st;
         mbar_expect_tx(full, 2 * TB);
 #pragma unroll
-        for (int a = 0; a < D / cols<D>(); ++a) {
+        for (int a = 0; a < dpad<D>() / cols<D>(); ++a) {
           tma_load(smem_addr(s_k + st * TB + a * ATOM), &tm_k, full,
                    cols<D>() * a, t * BK, h / G, b);
           tma_load(smem_addr(s_v + st * TB + a * ATOM), &tm_v, full,
@@ -713,6 +745,7 @@ flash_attention_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
 
     // 4. normalise and write the rows that exist ([B, Sq, H, D] contiguous)
+    //    and their D columns (the padded ones hold 0 * v and are dropped)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float l = l_i[i];
@@ -723,7 +756,7 @@ flash_attention_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
       if (qp >= Sq) continue;
       bf16* orow = o + (((int64_t)b * Sq + qp) * H + h) * D + 2 * tq;
 #pragma unroll
-      for (int n = 0; n < NA / 4; ++n)
+      for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
             __floats2bfloat162_rn(acc[4 * n + 2 * i] / lsum,
                                   acc[4 * n + 2 * i + 1] / lsum);
@@ -828,6 +861,9 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
     case 64:
       return wg::launch<64>(q, k, v, o, B, Sq, Skv, q_off, H, KVH, st, scale,
                             causal, stream);
+    case 80:
+      return wg::launch<80>(q, k, v, o, B, Sq, Skv, q_off, H, KVH, st, scale,
+                            causal, stream);
     case 128:
       return wg::launch<128>(q, k, v, o, B, Sq, Skv, q_off, H, KVH, st,
                              scale, causal, stream);
@@ -847,6 +883,9 @@ int launch_dim(const void* q, const void* k, const void* v, void* o, int B,
                                  scale, causal, stream);
     case 64:
       return launch_typed<T, 64>(q, k, v, o, B, Sq, Skv, q_off, H, KVH, st,
+                                 scale, causal, stream);
+    case 80:
+      return launch_typed<T, 80>(q, k, v, o, B, Sq, Skv, q_off, H, KVH, st,
                                  scale, causal, stream);
     case 128:
       return launch_typed<T, 128>(q, k, v, o, B, Sq, Skv, q_off, H, KVH, st,

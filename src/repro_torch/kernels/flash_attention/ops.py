@@ -11,8 +11,9 @@ on either device; there is no fallback from one to the other. On the
 card the dtype alone picks the kernel: f32 inputs go to the FMA kernel
 (f32 products, no TF32), bf16 inputs to the tensor-core kernel (bf16
 operands and f32 sums: ``wgmma`` fed by TMA from a producer warpgroup at
-head dims 32, 64 and 128, its tensor maps built on the host per call; p
-kept in f32 as a bf16 hi/lo pair). The model's
+head dims 32, 64, 80 and 128 (80 staged as 128, the extra columns zero),
+its tensor maps built on the host per call; p kept in f32 as a bf16 hi/lo
+pair). The model's
 prefill does not come here on the CPU (``layers.prefill_attention``
 keeps the chunked path the JAX prefill computes). The kernel reads each
 query head's KV head in place, so the GQA repeat of the JAX op is never
@@ -21,6 +22,12 @@ sequence whose keys are all given (a later chunk of a chunked prefill
 attending over the cache filled so far; the same kernels, their causal
 test and tile bounds moved by the offset). ``LAUNCHES["flash_attention"]``
 counts the kernels' launches (one per call).
+
+The op is a forward only, as the Pallas kernel is: no kernel of the JAX
+package has a backward, and its training differentiates the plain
+chunked attention (``models.layers.chunked_attention``).  Called with
+grad mode on and an input that requires grad, it raises rather than hand
+back an output with no graph (whose gradients would silently be zero).
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from .ref import flash_attention_ref
 
 #: kernel launches so far (plain-version runs not counted)
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
-HEAD_DIMS = (32, 64, 128)           # the kernel's instantiations (D)
+HEAD_DIMS = (32, 64, 80, 128)       # the kernel's instantiations (D)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -108,7 +115,6 @@ def _launch(q, k, v, causal: bool, scale: float,
     return o
 
 
-@torch.no_grad()
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         scale: Optional[float] = None,
@@ -118,7 +124,13 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head ``h // (Hq // KVH)``, as after the JAX op's ``jnp.repeat``, and
     query row i sits at position ``q_offset + i`` (under ``causal`` it
     sees keys ``0 .. q_offset + i``).  ``scale`` defaults to ``1 /
-    sqrt(D)``."""
+    sqrt(D)``.  Forward only: raises ``ValueError`` with grad mode on and
+    an input that requires grad."""
+    _check(not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in (q, k, v))),
+           "forward only (no backward, as the Pallas kernel has none): "
+           "call it under torch.no_grad(), or differentiate "
+           "models.layers.chunked_attention as the training path does")
     check_inputs(q, k, v, q_offset)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":

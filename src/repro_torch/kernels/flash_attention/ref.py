@@ -22,7 +22,9 @@
   split_bf16(p)``.  The CPU tests hold it to :func:`flash_attention_ref`
   within one bf16 ulp of the output, the limit the card holds the kernel
   to; ``p_terms=1`` rounds p once to bf16 instead, which that limit must
-  catch.
+  catch.  It stages the head dim as the kernel does (:func:`tc_head_dim`:
+  D = 80 as 128, the extra columns zero), which leaves every sum as it
+  is.
 """
 from __future__ import annotations
 
@@ -49,6 +51,13 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return o.to(q.dtype)
+
+
+def tc_head_dim(D: int) -> int:
+    """The head dim as the tensor-core kernel stages K and V: D rounded up
+    to whole swizzle atoms of 64 columns (D = 80 → 128; 32, 64 and 128
+    stay)."""
+    return D if D <= 64 else -(-D // 64) * 64
 
 
 def split_bf16(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -88,9 +97,13 @@ def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor,
     (``q_offset`` as in :func:`flash_attention_ref`)."""
     if p_terms not in (1, 2):
         raise ValueError(f"p_terms must be 1 or 2, not {p_terms}")
-    bf = [t.to(torch.bfloat16) for t in (q, k, v)]
+    D = q.shape[-1]
+    pad = tc_head_dim(D) - D
+    bf = [torch.nn.functional.pad(t.to(torch.bfloat16), (0, pad))
+          for t in (q, k, v)]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
     return _flash_walk(*bf, causal, scale, 64, p_terms,
-                       q_offset).to(q.dtype)
+                       q_offset)[..., :D].to(q.dtype)
 
 
 def _flash_walk(q, k, v, causal, scale, kv_block, p_terms, q_offset=0):

@@ -42,11 +42,13 @@ def _walk(tree: PyTree, fn: Callable[[Tuple[str, ...], Spec], Any],
     return fn(path, tree)
 
 
-def tree_map(fn: Callable[[Any], Any], tree: PyTree) -> PyTree:
-    """``fn`` over the leaves of a nested dict."""
+def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` over the leaves of a nested dict (and, leaf for leaf, of the
+    nested dicts ``rest`` of the same keys)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree: PyTree, path: Tuple[str, ...] = ()):

@@ -4,7 +4,11 @@ seeded draw streamed straight to the card.
 
 Both packages keep one layout (nested dicts, block leaves stacked over
 layers, ``[d_in, d_out]`` matrices), so conversion is leaf for leaf: the
-port then computes the same function on the same numbers.
+port then computes the same function on the same numbers.  That holds for
+every family: the encoder's tree keeps its token ``embed`` and its
+``lm_head`` (``input_embeds`` bypasses the embedding, which training then
+leaves at a zero gradient, as ``jax.grad`` does), the VLM's is a dense
+decoder's.
 """
 from __future__ import annotations
 

@@ -1,9 +1,12 @@
-"""Model assembly: config → specs, prefill, chunked prefill, dense and
-paged decode.
+"""Model assembly: config → specs, the full-sequence forward and training
+loss, prefill, chunked prefill, dense and paged decode.
 
-The port of the JAX package's ``models/model.py`` for the decoder
-families (``dense``, ``moe``, ``hybrid`` and ``xlstm``; the encoder and
-VLM input paths raise ``NotImplementedError``, ROADMAP A8c).  Layers are
+The port of the JAX package's ``models/model.py`` for every family:
+``dense``, ``moe``, ``hybrid``, ``xlstm``, the ``encoder`` (frame
+embeddings in through ``input_embeds``, non-causal, never decoded: the
+engine refuses it as the JAX engine does) and the ``vlm`` (patch
+embeddings written over the first ``n_patches`` positions through
+``patch_embeds``).  Layers are
 grouped into *superblocks* of ``block_period`` layers (the lcm of the
 architecture's interleave periods: jamba 8, xlstm 6, homogeneous 1), and a
 superblock's position j decides the layer's mixer (attention, Mamba,
@@ -23,7 +26,21 @@ be copied every step): ``decode_step``, ``decode_step_paged`` and
 ``prefill_chunked`` write into ``state`` and return it.  Every attention
 position runs the port's kernels on the card: the flash-attention kernel
 in prefill (with a query offset in the later chunks of
-``prefill_chunked``), the paged kernel in ``decode_step_paged``.
+``prefill_chunked``) and in ``forward`` / ``backbone``, the paged kernel
+in ``decode_step_paged``.  Every pass goes through one superblock loop,
+``_layers``.
+
+Training (``loss``, which calls ``backbone(train=True)``) is the JAX
+training's function written for autograd: each stacked leaf is unbound
+once a step and superblock i's slices cast to the compute dtype inside the
+step, so gradients reach the stored (f32) parameters; each superblock is
+recomputed in backward under ``RunConfig.remat == "full"``
+(``torch.utils.checkpoint``, the JAX ``jax.checkpoint``); attention is the plain ``layers.chunked_attention``,
+which the JAX training differentiates, on the CPU and on the card alike
+(the flash kernel is a forward only, as the Pallas kernel is); the
+recurrent layers run from a zero state and write none (the in-place
+state writes of the inference passes stay off the graph); cross-entropy
+is taken per sequence chunk, each chunk recomputed in backward.
 """
 from __future__ import annotations
 
@@ -32,6 +49,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import mamba as M
@@ -61,15 +79,6 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return _round_up(cfg.vocab, 256)
 
 
-def _require_decoder(cfg: ModelConfig) -> None:
-    if cfg.family in ("encoder", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            "runs the dense, moe, hybrid and xlstm families (the encoder "
-            "and VLM input paths, input_embeds / patch_embeds, are ROADMAP "
-            "A8c)")
-
-
 def block_period(cfg: ModelConfig) -> int:
     if cfg.family == "hybrid":
         return int(np.lcm(cfg.attn_every, cfg.moe_every))
@@ -79,7 +88,6 @@ def block_period(cfg: ModelConfig) -> int:
 
 
 def n_superblocks(cfg: ModelConfig) -> int:
-    _require_decoder(cfg)
     per = block_period(cfg)
     assert cfg.n_layers % per == 0, (cfg.n_layers, per)
     return cfg.n_layers // per
@@ -226,9 +234,6 @@ class Model:
     cfg: ModelConfig
     rc: RunConfig
 
-    def __post_init__(self):
-        _require_decoder(self.cfg)
-
     # ---- params ----
     def specs(self) -> dict:
         return model_specs(self.cfg, self.rc)
@@ -259,19 +264,32 @@ class Model:
         every block leaf in the compute dtype (``final_norm`` stays as it
         is).  The JAX package casts these inside every call; the port
         casts once, and each pass's own cast is then a no-op."""
-        cast = lambda a: a.to(self.cdt) if a.is_floating_point() else a  # noqa: E731
-        return {k: (tree_map(cast, v) if k in ("embed", "lm_head", "blocks")
+        return {k: (tree_map(self._cast, v)
+                    if k in ("embed", "lm_head", "blocks")
                     else v) for k, v in params.items()}
 
     # ---- helpers ----
-    def _sb(self, params, i: int) -> dict:
-        """Superblock i's parameters, ``{"pos{j}": {...}}``, in the
-        compute dtype."""
-        cast = lambda a: a[i].to(self.cdt) if a.is_floating_point() else a[i]  # noqa: E731
-        return tree_map(cast, params["blocks"])
+    def _cast(self, a: torch.Tensor) -> torch.Tensor:
+        return a.to(self.cdt) if a.is_floating_point() else a
 
-    def _embed(self, params, tokens):
-        return params["embed"].to(self.cdt)[tokens.long()]
+    def _embed(self, params, tokens, patch_embeds=None):
+        """tokens [B, S] → [B, S, d] in the compute dtype; a VLM's
+        ``patch_embeds`` [B, n_patches, d] take the first ``min(n_patches,
+        S)`` positions (cast to the compute dtype), as the JAX package's
+        ``dynamic_update_slice`` writes them."""
+        x = params["embed"].to(self.cdt)[tokens.long()]
+        if self.cfg.n_patches and patch_embeds is not None:
+            n = min(self.cfg.n_patches, x.shape[1])
+            x = torch.cat([patch_embeds[:, :n].to(self.cdt), x[:, n:]], 1)
+        return x
+
+    def _inputs(self, params, tokens, patch_embeds, input_embeds):
+        """The first hidden state [B, S, d]: ``input_embeds`` cast to the
+        compute dtype (the encoder's frames; tokens are not read), else
+        :meth:`_embed` of ``tokens`` and ``patch_embeds``."""
+        if input_embeds is not None:
+            return input_embeds.to(self.cdt)
+        return self._embed(params, tokens, patch_embeds)
 
     def _logits(self, params, x):
         head = params.get("lm_head")
@@ -284,11 +302,17 @@ class Model:
             logits = torch.where(pad, -1e9, logits.float())
         return logits
 
-    def _mixer(self, j: int, p: dict, h: torch.Tensor, state: dict):
+    def _mixer(self, j: int, p: dict, h: torch.Tensor,
+               state: Optional[dict]):
         """A recurrent position's mixer over h [B, S, d] from ``state`` (one
-        superblock's slice) → (out, new state)."""
+        superblock's slice) → (out, new state); from a zero state, and with
+        no state out, where ``state`` is None."""
         cfg, sc = self.cfg, self.rc.scan_chunk
         mk = _mixer_kind(cfg, j)
+        if state is None:
+            layer = {"mamba": M.mamba_layer, "mlstm": X.mlstm_layer,
+                     "slstm": X.slstm_layer}[mk]
+            return layer(cfg, p[mk], h, scan_chunk=sc), None
         if mk == "mamba":
             out, (cs, ss) = M.mamba_layer(
                 cfg, p["mamba"], h, scan_chunk=sc,
@@ -307,59 +331,180 @@ class Model:
             return out, {"c": s.c, "n": s.n, "m": s.m, "h": s.h}
         raise ValueError(mk)
 
-    def _ffn(self, j: int, p: dict, x: torch.Tensor) -> torch.Tensor:
-        """Residual FFN half of position j (none where ``d_ff == 0``)."""
+    def _ffn(self, j: int, p: dict, x: torch.Tensor):
+        """Residual FFN half of position j (none where ``d_ff == 0``) →
+        (x, the MoE aux loss, or None at a position without MoE)."""
         fk = _ffn_kind(self.cfg, j)
         if fk == "none":
-            return x
+            return x, None
         h = L.rms_norm(x, p["ln2"], self.cfg.rms_eps)
         if fk == "moe":
-            return x + MoE.moe_ffn(self.cfg, self.rc, p["moe"], h)[0]
-        return x + L.mlp(p["mlp"], h)
+            f, aux = MoE.moe_ffn(self.cfg, self.rc, p["moe"], h)
+            return x + f, aux
+        return x + L.mlp(p["mlp"], h), None
 
-    def _layers(self, params, x: torch.Tensor, state: dict,
-                attend: Callable) -> torch.Tensor:
+    def _layers(self, params, x: torch.Tensor, state: Optional[dict],
+                attend: Callable, remat: bool = False):
         """x [B, S, d] through every superblock and position, as the JAX
-        package's ``_superblock``: the mixer (``attend(i, p_attn, st, h)``
-        → [B, S, d] at attention positions, which reads and writes
-        superblock i's slice of the position's state ``st`` itself; the
-        recurrent layer from its state slice, written back in place,
-        elsewhere), then the position's FFN."""
+        package's ``_superblock`` → (x, the MoE aux loss summed over layers,
+        f32): the mixer (``attend(i, p_attn, st, h)`` → [B, S, d] at
+        attention positions, which reads and writes superblock i's slice of
+        the position's state ``st`` itself; the recurrent layer from its
+        state slice, written back in place, elsewhere), then the position's
+        FFN.  ``state=None``: no state read or written (``st`` is None, the
+        recurrent layers start from zero).  Superblock i's leaves are cast
+        to the compute dtype inside the pass (a no-op on
+        :meth:`compute_params`'s), so gradients reach stored f32
+        parameters; ``remat`` recomputes each superblock in backward
+        (``torch.utils.checkpoint``, the JAX ``jax.checkpoint``)."""
         cfg = self.cfg
-        for i in range(n_superblocks(cfg)):
-            p_sb = self._sb(params, i)
+        # each stacked leaf split once: a slice a[i] per superblock would
+        # make autograd add nsb zero-padded full-size gradients per leaf;
+        # unbind's backward stacks them once
+        blocks = tree_map(lambda a: a.unbind(0), params["blocks"])
+
+        def superblock(x, i):
+            p_sb = tree_map(lambda ts: self._cast(ts[i]), blocks)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for j in range(block_period(cfg)):
-                p, st = p_sb[f"pos{j}"], state[f"pos{j}"]
+                p = p_sb[f"pos{j}"]
+                st = None if state is None else state[f"pos{j}"]
                 h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
                 if _mixer_kind(cfg, j) == "attn":
                     mix = attend(i, p["attn"], st, h)
                 else:
-                    mix, new = self._mixer(j, p, h, _slice_state(st, i))
-                    _write_state(st, i, new)
-                x = self._ffn(j, p, x + mix)
-        return x
+                    mix, new = self._mixer(
+                        j, p, h, None if st is None else _slice_state(st, i))
+                    if new is not None:
+                        _write_state(st, i, new)
+                x, a = self._ffn(j, p, x + mix)
+                if a is not None:
+                    aux = aux + a
+            return x, aux
+
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(n_superblocks(cfg)):
+            if remat:
+                x, a = checkpoint(superblock, x, i, use_reentrant=False)
+            else:
+                x, a = superblock(x, i)
+            aux = aux + a
+        return x, aux
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         return self._logits(params, L.rms_norm(x, params["final_norm"],
                                                self.cfg.rms_eps))
 
     # ---- public passes ----
+    def backbone(self, params, tokens: Optional[torch.Tensor] = None, *,
+                 patch_embeds=None, input_embeds=None, positions=None,
+                 train: bool = False):
+        """Full-sequence forward → (final hidden [B, S, d] after the final
+        norm, the MoE aux loss summed over layers, f32).
+
+        Inputs as :meth:`_inputs`; ``positions`` [B, S] default to ``0 ..
+        S - 1``.  Attention is ``layers.prefill_attention`` (the flash
+        kernel on the card) with ``causal=cfg.causal``.  ``train=True``
+        (:meth:`loss`) is the training forward of the module's docstring:
+        attention by ``chunked_attention``, each superblock recomputed in
+        backward under ``remat == "full"`` while grad mode is on."""
+        cfg, rc = self.cfg, self.rc
+        x = self._inputs(params, tokens, patch_embeds, input_embeds)
+        B, S = x.shape[:2]
+        if positions is None:
+            positions = torch.arange(S, device=x.device).expand(B, S)
+
+        def attend(i, p, st, h):
+            q, k, v = L.attention_qkv(cfg, p, h, positions)
+            if train:
+                o = L.chunked_attention(q, k, v, causal=cfg.causal,
+                                        q_chunk=rc.attn_q_chunk,
+                                        kv_chunk=rc.attn_kv_chunk)
+            else:
+                o = L.prefill_attention(q, k, v, causal=cfg.causal, rc=rc)
+            return o.reshape(B, S, cfg.q_dim) @ p["wo"]
+
+        remat = train and rc.remat == "full" and torch.is_grad_enabled()
+        x, aux = self._layers(params, x, None, attend, remat=remat)
+        return L.rms_norm(x, params["final_norm"], cfg.rms_eps), aux
+
+    def forward(self, params, tokens: Optional[torch.Tensor] = None, *,
+                patch_embeds=None, input_embeds=None, positions=None):
+        """Full-sequence forward → (logits [B, S, V], aux) (inference and
+        tests; :meth:`backbone`'s inputs)."""
+        x, aux = self.backbone(params, tokens, patch_embeds=patch_embeds,
+                               input_embeds=input_embeds,
+                               positions=positions)
+        return self._logits(params, x), aux
+
+    def loss(self, params, tokens: Optional[torch.Tensor], labels, *,
+             mask=None, patch_embeds=None, input_embeds=None,
+             xent_chunk: int = 512):
+        """Training loss → (mean masked cross-entropy, the MoE aux loss).
+
+        The lm head and the cross-entropy are taken ``xent_chunk`` positions
+        at a time, each chunk recomputed in backward, so ``[B, S, V]``
+        logits never exist at once; padded vocabulary classes get a
+        ``-1e9`` bias; the sum of ``mask``-weighted token losses (``mask``
+        defaults to ones) is divided by ``max(mask.sum(), 1)``."""
+        cfg = self.cfg
+        x, aux = self.backbone(params, tokens, patch_embeds=patch_embeds,
+                               input_embeds=input_embeds, train=True)
+        B, S, _ = x.shape
+        head = params.get("lm_head")
+        if head is None:
+            head = params["embed"].T
+        head = head.to(x.dtype)
+        V = padded_vocab(cfg)
+        pad_bias = torch.where(torch.arange(V, device=x.device) >= cfg.vocab,
+                               -1e9, 0.0).float()
+        labels = labels.long()
+        if mask is None:
+            mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+        mask = mask.float()
+
+        def chunk_nll(xc, lc, mc, head):
+            logits = (xc @ head).float() + pad_bias
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, lc[..., None])[..., 0]
+            return ((lse - ll) * mc).sum()
+
+        C = min(xent_chunk, S)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, S, C):
+            part = (x[:, c0:c0 + C], labels[:, c0:c0 + C],
+                    mask[:, c0:c0 + C], head)
+            if torch.is_grad_enabled():
+                total = total + checkpoint(chunk_nll, *part,
+                                           use_reentrant=False)
+            else:
+                total = total + chunk_nll(*part)
+        return total / torch.clamp_min(mask.sum(), 1.0), aux
+
     @torch.no_grad()
-    def prefill(self, params, tokens: torch.Tensor,
+    def prefill(self, params, tokens: Optional[torch.Tensor], *,
+                patch_embeds=None, input_embeds=None,
                 max_seq: Optional[int] = None):
-        """tokens [B, S] → (logits [B, S, V], decode state filled to S
-        tokens: the dense KV cache ``{"k", "v"}`` of ``[nsb, B, max_seq,
-        KVH, D]`` at attention positions, each recurrent layer's state
-        after the S tokens at the others).  :meth:`prefill_chunked` in one
-        chunk."""
+        """tokens [B, S] (or ``input_embeds`` [B, S, d]; a VLM's
+        ``patch_embeds`` over the first positions, as :meth:`_embed`) →
+        (logits [B, S, V], decode state filled to S tokens: the dense KV
+        cache ``{"k", "v"}`` of ``[nsb, B, max_seq, KVH, D]`` at attention
+        positions, each recurrent layer's state after the S tokens at the
+        others).  :meth:`prefill_chunked` in one chunk."""
         return self.prefill_chunked(params, tokens, n_chunks=1,
+                                    patch_embeds=patch_embeds,
+                                    input_embeds=input_embeds,
                                     max_seq=max_seq)
 
     @torch.no_grad()
-    def prefill_chunked(self, params, tokens: torch.Tensor, *,
-                        n_chunks: int, max_seq: Optional[int] = None):
+    def prefill_chunked(self, params, tokens: Optional[torch.Tensor], *,
+                        n_chunks: int, patch_embeds=None, input_embeds=None,
+                        max_seq: Optional[int] = None):
         """Sarathi-style chunked prefill: the S tokens in ``n_chunks``
-        passes of ``S / n_chunks``, each through every layer.  A chunk
+        passes of ``S / n_chunks``, each through every layer; the whole
+        prompt is embedded first (:meth:`_inputs`: ``input_embeds``, or
+        the tokens with a VLM's ``patch_embeds``), as the JAX package
+        embeds it before chunking.  A chunk
         writes its K/V into the cache prefix and attends over ``[0, off +
         Sc)`` with its queries at ``off ..`` (the flash-attention kernel's
         query offset on the card, ``chunked_attention`` on the CPU);
@@ -367,12 +512,13 @@ class Model:
         each chunk's MoE dispatch takes its own capacity.  Returns
         (logits [B, S, V], decode state) as :meth:`prefill`."""
         cfg, rc = self.cfg, self.rc
-        B, S = tokens.shape
+        x_full = self._inputs(params, tokens, patch_embeds, input_embeds)
+        B, S = x_full.shape[:2]
         if S % n_chunks:
             raise ValueError(f"{S} tokens do not split into {n_chunks} "
                              "chunks")
         Sc = S // n_chunks
-        dev = tokens.device
+        dev = x_full.device
         state = init_decode_state(cfg, B, max_seq or S, self.cdt, dev)
         hidden = []
         for off in range(0, S, Sc):
@@ -389,9 +535,8 @@ class Model:
                     q_offset=off)
                 return o.reshape(B, Sc, cfg.q_dim) @ p["wo"]
 
-            hidden.append(self._layers(
-                params, self._embed(params, tokens[:, off:off + Sc]), state,
-                attend))
+            hidden.append(self._layers(params, x_full[:, off:off + Sc],
+                                       state, attend)[0])
         x = hidden[0] if n_chunks == 1 else torch.cat(hidden, dim=1)
         return self._head(params, x), state
 
@@ -417,7 +562,8 @@ class Model:
                                    kv_len + 1)
             return o.reshape(B, 1, cfg.q_dim) @ p["wo"]
 
-        x = self._layers(params, self._embed(params, tokens), state, attend)
+        x, _ = self._layers(params, self._embed(params, tokens), state,
+                            attend)
         return self._head(params, x), state
 
     @torch.no_grad()
@@ -467,5 +613,18 @@ class Model:
                                 page_size=page_size, descriptors=prep)
             return o.to(h.dtype).reshape(B, 1, cfg.q_dim) @ p["wo"]
 
-        x = self._layers(params, self._embed(params, tokens), state, attend)
+        x, _ = self._layers(params, self._embed(params, tokens), state,
+                            attend)
         return self._head(params, x), state
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy of ``logits`` [..., V] (in f32) at
+    ``labels``; with ``mask``, the masked sum over ``max(mask.sum(),
+    1)``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return -ll.mean()

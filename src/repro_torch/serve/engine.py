@@ -21,8 +21,11 @@ A model with no attention position (xLSTM) serves with no pool and never
 launches the paged kernel; the allocator's pages and the descriptor counts
 are kept all the same, as the JAX engine keeps them.
 
-The engine runs on the card unless ``device="cpu"`` is asked for (then the
-paged op takes its plain version).  Not ported yet: ``snapshot`` /
+The engine serves every decoding family; a VLM (``llava-next-34b``) is
+served on text prompts, as the JAX engine serves it (it takes no
+``patch_embeds``: ``Model.prefill`` does), and an encoder is refused, as
+there.  The engine runs on the card unless ``device="cpu"`` is asked for
+(then the paged op takes its plain version).  Not ported yet: ``snapshot`` /
 ``restore`` (they need the checkpointer, ROADMAP A13).  Of the JAX
 ``EngineConfig``, ``interpret`` (Pallas interpret mode) has no meaning here
 and ``greedy`` is read nowhere (decoding is greedy): both are dropped.

@@ -1,0 +1,3 @@
+from .train_step import (loss_fn, make_batch_shapes, make_prefill_step,
+                         make_serve_step, make_train_step)
+from .trainer import SimulatedFailure, Trainer, TrainerConfig

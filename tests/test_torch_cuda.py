@@ -415,10 +415,12 @@ def test_serving_engine_on_card_matches_cpu(cuda):
 # ---------------------------------------------------------------------------
 
 #: (B, S, H, KVH, D, causal): ``tests/test_kernels.py``'s four shapes, a
-#: ragged full-width InternLM2 layer, and a ragged non-causal GQA case
+#: ragged full-width InternLM2 layer, a ragged non-causal GQA case, and
+#: HuBERT-XLarge's head dim 80 (non-causal, and causal at its 16 heads)
 FLASH_SHAPES = [(2, 128, 4, 2, 64, True), (1, 200, 4, 4, 32, True),
                 (2, 96, 8, 2, 64, False), (1, 64, 2, 1, 128, True),
-                (1, 333, 16, 8, 128, True), (2, 77, 8, 2, 32, False)]
+                (1, 333, 16, 8, 128, True), (2, 77, 8, 2, 32, False),
+                (2, 96, 4, 4, 80, False), (1, 300, 16, 16, 80, True)]
 
 
 def _flash_case(dev, dtype, B, S, H, KVH, D, seed=0):
@@ -490,7 +492,7 @@ BF16_ULP_RTOL, BF16_RMS_ATOL = 2.0 ** -7, 1e-2
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
 def test_flash_bf16_kernel_within_one_ulp_twice_and_strided(cuda, D,
                                                             causal):
     """The tensor-core kernel at every head dim, S not a multiple of its
@@ -513,6 +515,110 @@ def test_flash_bf16_kernel_within_one_ulp_twice_and_strided(cuda, D,
     rms = want.square().mean().sqrt()
     limit = BF16_ULP_RTOL * want.abs() + BF16_RMS_ATOL * rms
     assert bool(((a.float() - want).abs() <= limit).all())
+
+
+def test_flash_wrapper_refuses_autograd_on_the_card(cuda):
+    """Forward only: an input that requires grad, with grad mode on, raises
+    before any launch; under ``torch.no_grad`` the same call launches."""
+    from repro_torch.kernels.flash_attention import (
+        LAUNCHES, flash_attention_gqa)
+    n0 = LAUNCHES["flash_attention"]
+    q, k, v = _flash_case(cuda, torch.bfloat16, 1, 64, 4, 2, 80)
+    q.requires_grad_(True)
+    with pytest.raises(ValueError, match="forward only"):
+        flash_attention_gqa(q, k, v)
+    assert LAUNCHES["flash_attention"] == n0
+    with torch.no_grad():
+        flash_attention_gqa(q, k, v)
+    assert LAUNCHES["flash_attention"] == n0 + 1
+
+
+def test_encoder_forward_on_card_at_head_dim_80(cuda):
+    """The reduced HuBERT with its published head dim of 80, f32 (TF32
+    off): ``Model.forward(input_embeds=...)`` under ``torch.no_grad``
+    launches the D = 80 kernel once per layer, non-causal, and gives the
+    CPU forward's logits (5e-5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.models import Model, RunConfig, params_from_numpy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("hubert-xlarge", reduced=True),
+                              head_dim=80)
+    model = Model(cfg, RunConfig(compute_dtype="float32"))
+    host = model.init_numpy(0)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 150, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        want, _ = model.forward(params_from_numpy(host, "cpu"),
+                                input_embeds=x)
+        n0 = LAUNCHES["flash_attention"]
+        got, _ = model.forward(params_from_numpy(host, cuda),
+                               input_embeds=x.to(cuda))
+        torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == n0 + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "hubert-xlarge"])
+def test_reduced_train_step_on_card_matches_cpu(cuda, arch):
+    """The reduced model's gradients and one AdamW ``train_step`` (two
+    microbatches) on the card, f32 (TF32 off), against the CPU's: the
+    loss, the grad norm and every gradient leaf (within ``atol`` = 2e-4
+    of the leaf's largest + 1e-6, the tolerance against JAX), the
+    parameters after the step within 1e-4 wherever the step's gradient
+    (the mean of the two microbatches' gradients, each loss over its own
+    mask) is settled (|g| above 10 ``atol``, so that the gradient's
+    tolerance moves the update by at most a few hundredths of lr) and
+    within 1.5 lr elsewhere (one AdamW step moves a weight by ~0.73 lr,
+    either way, whatever |g|); no kernel launched (training
+    differentiates the plain chunked attention)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, _batch_at
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.models import Model, RunConfig, params_from_numpy
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import OptConfig, init_opt
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import grads_of
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, reduced=True)
+    model = Model(cfg, RunConfig(compute_dtype="float32", microbatches=2,
+                                 attn_q_chunk=32, attn_kv_chunk=32))
+    host = model.init_numpy(0)
+    batch = _batch_at(cfg, PipelineConfig(batch=4, seq=48), 2)
+    oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(model, oc)
+    grads, out = {}, {}
+    n0 = LAUNCHES["flash_attention"]
+    for dev in ("cpu", cuda):
+        p = params_from_numpy(host, dev)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        grads[str(dev)] = grads_of(model, p, b)
+        out[str(dev)] = step(p, init_opt(oc, p), b, 1)
+    p = params_from_numpy(host, "cpu")
+    micro = [dict(tree_leaves(grads_of(model, p, {
+        k: torch.from_numpy(v[2 * i:2 * i + 2]) for k, v in batch.items()})[0]))
+        for i in range(2)]
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == n0
+    (gc, lc), (gg, lg) = grads["cpu"], grads[str(cuda)]
+    assert abs(float(lg["loss"]) - float(lc["loss"])) <= 5e-5
+    g_cpu = dict(tree_leaves(gc))
+    atol = {path: 2e-4 * float(g.abs().max()) + 1e-6
+            for path, g in g_cpu.items()}
+    for path, g in tree_leaves(gg):
+        torch.testing.assert_close(g.cpu(), g_cpu[path], atol=atol[path],
+                                   rtol=0, msg=str(path))
+    (pc, _, mc), (pg, _, mg) = out["cpu"], out[str(cuda)]
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 5e-5
+    assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) <= \
+        1e-4 * float(mc["grad_norm"])
+    for (path, a), (_, b) in zip(tree_leaves(pg), tree_leaves(pc)):
+        g_step = (micro[0][path] + micro[1][path]) / 2
+        settled = g_step.abs() > 10 * atol[path]
+        diff = (a.cpu() - b).abs()
+        assert not bool((diff[settled] > 1e-4).any()), path
+        assert float(diff.max()) <= 1.5 * oc.lr, path
 
 
 def test_flash_wrapper_rejects_unaligned_strides(cuda):

@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention import (LAUNCHES, attention_ref,
                                                  flash_attention_ref,
                                                  flash_attention_tc_ref,
                                                  split_bf16)
+from repro_torch.kernels.flash_attention.ref import tc_head_dim
 from repro_torch.models import RunConfig
 from repro_torch.models import layers as TL
 
@@ -71,6 +72,53 @@ def test_flash_ref_matches_jax_kernel(B, S, H, KVH, D, causal, bq, bk):
     _close(flash_attention_ref(q, k, v, causal=causal), want, TOL)
     got = flash_attention_gqa(q, k, v, causal=causal)
     _close(got, want, TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,S,H,KVH", [(2, 128, 4, 2), (1, 200, 4, 4)])
+def test_flash_ref_at_head_dim_80_matches_jax_kernel(B, S, H, KVH, causal):
+    """HuBERT-XLarge's head dim, 80 (the kernel's D = 80 instantiation),
+    non-causal as HuBERT runs it and causal, at a ragged S: the plain
+    version, the CPU op and the tensor-core arithmetic == the Pallas
+    kernel in interpret mode."""
+    arrs = _inputs(B, S, H, KVH, 80, seed=S)
+    want = j_flash(*_j(*arrs), causal=causal, block_q=64, block_k=64)
+    q, k, v = _t(*arrs)
+    _close(flash_attention_ref(q, k, v, causal=causal), want, TOL)
+    _close(flash_attention_gqa(q, k, v, causal=causal), want, TOL)
+    qb, kb, vb = _t(*arrs, dtype=torch.bfloat16)
+    jb = j_flash(*_j(*arrs, dtype=jnp.bfloat16), causal=causal, block_q=64,
+                 block_k=64)
+    _close(flash_attention_tc_ref(qb, kb, vb, causal=causal),
+           jb.astype(jnp.float32), TOL_BF16)
+
+
+def test_tensor_core_head_dim_is_staged_in_whole_atoms():
+    """The bf16 kernel stages K and V in 64-column swizzle atoms: D = 80
+    as 128 (its extra columns zero, which changes no sum), the other head
+    dims as they are; the padded emulation equals the unpadded walk."""
+    assert [tc_head_dim(D) for D in (32, 64, 80, 128)] == [32, 64, 128, 128]
+    q, k, v = _t(*_inputs(1, 70, 2, 1, 80, seed=8), dtype=torch.bfloat16)
+    got = flash_attention_tc_ref(q, k, v, causal=True)
+    assert got.shape == q.shape
+    from repro_torch.kernels.flash_attention.ref import _flash_walk
+    assert torch.equal(got, _flash_walk(q, k, v, True, None, 64, 2))
+
+
+def test_flash_op_refuses_autograd():
+    """The op is a forward only, as the Pallas kernel is: with grad mode on
+    and an input that requires grad it raises (its output would carry no
+    graph, so the gradients through attention would silently be 0); under
+    ``torch.no_grad``, or with nothing requiring grad, it runs."""
+    q, k, v = _t(*_inputs(1, 40, 2, 1, 32, seed=9))
+    want = flash_attention_gqa(q, k, v)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+        with pytest.raises(ValueError, match="forward only"):
+            flash_attention_gqa(q, k, v)
+        with torch.no_grad():
+            assert torch.equal(flash_attention_gqa(q, k, v), want)
+        t.requires_grad_(False)
 
 
 def test_flash_ref_matches_jax_kernel_bf16():
@@ -183,7 +231,8 @@ def test_split_bf16_keeps_p_to_2_16(seed):
 #: (B, S, H, KVH, D, causal): every head dim, ragged S, GQA 1/2/4 and MQA
 TC_SHAPES = [(1, 100, 4, 4, 32, True), (2, 77, 4, 2, 64, False),
              (1, 150, 8, 2, 128, True), (1, 90, 4, 1, 64, True),
-             (2, 130, 8, 2, 32, False), (1, 200, 2, 1, 128, False)]
+             (2, 130, 8, 2, 32, False), (1, 200, 2, 1, 128, False),
+             (2, 110, 4, 4, 80, False), (1, 140, 8, 2, 80, True)]
 
 
 @pytest.mark.parametrize("B,S,H,KVH,D,causal", TC_SHAPES)

@@ -27,7 +27,8 @@ from repro.models import RunConfig as JRunConfig
 from repro.models import init_decode_state as j_init_decode_state
 from repro.models import layers as JL
 from repro.models import model_specs as j_model_specs
-from repro_torch.configs import ARCH_IDS, NOT_PORTED, get_config
+from repro.configs import ARCH_IDS as J_ARCH_IDS
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels.paged_attention.ops import build_descriptors
 from repro_torch.models import (Model, RunConfig, init_decode_state,
                                 model_specs, params_from_numpy)
@@ -85,15 +86,29 @@ def test_configs_and_specs_match_jax(arch):
             == _spec_list(j_model_specs(j_config(arch), JRunConfig())))
 
 
-def test_non_dense_families_are_refused():
-    """The families whose input paths are not ported (encoder, VLM) are
-    refused by the registry and by ``Model``, naming the queue item."""
-    assert sorted(NOT_PORTED) == ["hubert-xlarge", "llava-next-34b"]
-    for arch in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8c"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP A8c"):
-            Model(j_config(arch, reduced=True), RunConfig())
+def test_all_archs_resolve_and_encoder_decode_is_refused():
+    """The port's registry resolves all ten archs of the JAX registry, in
+    its order, and builds a ``Model`` for each; an encoder is refused at
+    the engine, where the JAX engine refuses it (``encoder models don't
+    decode``), and runs its forward instead."""
+    from repro_torch.serve import EngineConfig, ServingEngine
+    assert ARCH_IDS == J_ARCH_IDS and len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        for reduced in (False, True):
+            assert get_config(arch, reduced).name.startswith(arch)
+        Model(get_config(arch, reduced=True), RunConfig())
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
+    tm = Model(get_config("hubert-xlarge", reduced=True),
+               RunConfig(compute_dtype="float32"))
+    params = params_from_numpy(tm.init_numpy(0), device="cpu")
+    with pytest.raises(AssertionError, match="don't decode"):
+        ServingEngine(tm, params, EngineConfig(num_pages=8, max_seq=64),
+                      device="cpu")
+    x = torch.zeros((1, 8, tm.cfg.d_model))
+    with torch.no_grad():
+        logits, _ = tm.forward(params, input_embeds=x)
+    assert logits.shape == (1, 8, 256)
 
 
 def test_init_params_numpy_is_seeded_and_scaled():
