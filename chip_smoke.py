@@ -108,6 +108,43 @@ S2. InternLM2-1.8B at full width (24 layers, d_model 2048, 16 heads over 8
     fixture's top-1/top-2 gap exceeds twice the logit tolerance, logits
     within ``LOGIT_ATOL``, integers exactly); every prefill launches the
     flash-attention kernel once per layer;
+R.  the robustness harness (``repro_torch.robustness``), run right after
+    S2 on its f32 weights; ``run_sweep``'s recovery ladder catches only
+    the injected ``BackendFault``, so it can be taken nowhere but in R2's
+    two injected runs (a real launch failure raises), and the stats of
+    phase 2's, R1's and R3's sweeps must show no rung:
+R1. TLB parity faults at bench size (``chaos.parity_sweeps``): the
+    ``mt-serve-mix`` and ``nested-vm-mix`` worlds at 2^15 pages and
+    60,000 accesses, each with ``make_parity_world(seed=1908,
+    n_faults=3)``, Base / COLT / K-aligned psi = 3 under ``par_policy``
+    parity and ecc and fault-free: 18 cells, one launch a world; worlds,
+    fault schedules and every cell equal to the JAX package's in
+    ``tests/data/port_chaos_reference.json``, every translation the live
+    mapping's, ecc equal to fault-free bit for bit; the rows' invalidated
+    entries and extra walks printed;
+R2. the ladder on the card (``chaos.backend_sweeps``): the
+    ``mt-serve-mix`` suite with one injected launch failure must recover
+    by bisection (bisections >= 1, no oracle fallback) and with a cursed
+    cell by the oracle (one fallback), both equal to the clean run bit for
+    bit, the kernel launched once more than the clean run for the halves;
+R3. sweep-cache corruption (truncate, garbage, schema): 3 entries
+    quarantined, results equal;
+R4. the chaos bench's serve rows on the card: the reduced InternLM2-1.8B
+    in f32, page 8, 256 pages, batch 3, 4 requests of 12 + 5 tokens,
+    fault-free and through a crash at step 3, KV corruption at step 2 and
+    page loss at step 1: tokens and report counts equal to the JAX
+    engine's in the fixture;
+R5. InternLM2-1.8B at full width in f32 (S2's weights), S3's first 4
+    requests with answers capped at 32, ``EngineConfig(page_size=16,
+    num_pages=512, max_batch=3, max_seq=4096)`` (the f32 pool is 1.61 GB):
+    fault-free, then a crash at step 20 (a snapshot every 16 steps), KV
+    corruption of 2 pages at step 6 and 8 pages drawn for loss at step 3
+    (seed 1908; the free ones are retired); the crash row equal to the
+    fault-free run bit for bit (tokens and every logits row), the other
+    two by S2's rule (tokens equal where the fault-free top-1 leads by
+    more than 2e-3, logits within ``LOGIT_ATOL`` while the tokens agree);
+    each row's engine wall, the classes K over the run, snapshot save and
+    restore seconds and bytes;
 S3. the slice at conversation-trace lengths: default bf16 compute, 16
     requests whose prompt and answer lengths are drawn from a seed around
     the medians of the Azure LLM inference trace's conversation set (see
@@ -181,8 +218,8 @@ M1. the reduced ``qwen2-moe-a2.7b``, ``jamba-1.5-large-398b`` and
     launched once per attention layer and prefill, the paged kernel only
     where the model has attention;
 M2. Qwen1.5-MoE-A2.7B at full width (d_model 2048, 60 routed experts
-    top-4 plus 4 shared, vocab 151,936) and 12 of its 24 layers
-    (``M_LAYERS``: 7.5 B of its 14.3 B parameters), its weights drawn by
+    top-4 plus 4 shared, vocab 151,936) and 6 of its 24 layers
+    (``M_LAYERS``: 4.0 B of its 14.3 B parameters), its weights drawn by
     the streaming initialiser into bf16 on the card, S3's first 8 requests
     with answers capped at 32 tokens through S3's engine configuration:
     every request finishes, one flash launch a layer and prefill, a
@@ -192,9 +229,9 @@ M2. Qwen1.5-MoE-A2.7B at full width (d_model 2048, 60 routed experts
     that records its routings, and every token against the dense-cache
     decode (``dense_check`` of a ``yardstick``: batched as the engine ran,
     f32 softmax weights, the engine's experts replayed);
-M3. xLSTM-350M at full width (d_model 1024, sLSTM every 6th) and 12 of
-    its 24 layers, in bf16 with M2's requests: no pool, no flash or paged launch, every
-    token against the dense-cache decode as in M2; then in f32 (TF32 off)
+M3. xLSTM-350M at full width (d_model 1024, sLSTM every 6th) and 6 of
+    its 24 layers, in bf16 with M2's requests: no pool, no flash or paged
+    launch, every token against the dense-cache decode as in M2; then in f32 (TF32 off)
     through the engine, each request decoded alone by the dense decode,
     every token equal past a 2e-3 margin;
 E1. the flash kernel at D = 80 against its plain version (``FLASH_SHAPES``
@@ -238,8 +275,9 @@ V1. LLaVA-NeXT-34B at full width (60 layers, d_model 7,168, 56 / 8 heads,
    ``launches_by_path`` also W1's and W2's; the attention kernels'
    ``launches_by_path`` also C1's comparisons, C2's, M1-M3's, E1's and
    V1's; the flash line's ``at_q_offset`` C1's timing, ``at_d80`` E1's and
-   ``at_llava`` V1's, the paged line's ``at_v1_step`` V1's), the script's
-   wall, the card line, and the ``{"ok": true, ...}`` line.
+   ``at_llava`` V1's, the paged line's ``at_v1_step`` V1's; R1-R3's TLB
+   launches and R4's and R5's attention launches in ``launches_by_path``),
+   the script's wall, the card line, and the ``{"ok": true, ...}`` line.
 
 It exits non-zero, printing no result, without a card or outside a
 checkout of the repository.  The serving helpers below also run on the
@@ -385,9 +423,10 @@ FAMILY_REF_JSON = os.path.join(HERE, "tests", "data",
 # trace's answer lengths, to keep the phase short)
 M2_ARCH, M3_ARCH = "qwen2-moe-a2.7b", "xlstm-350m"
 M_REQUESTS, M_ANSWER_CAP = 8, 32
-# M2 and M3 run 12 of their 24 layers (a cut of depth, widths kept) so
-# that the whole script stays well inside its time limit beside E1-V1
-M_LAYERS = 12
+# M2 and M3 run 6 of their 24 layers (a cut of depth, widths kept) so
+# that the whole script stays well inside its time limit beside E1-V1 and
+# R1-R5
+M_LAYERS = 6
 
 # ------------------------------- encoder, VLM and training, E1, T0, T1, V1
 TRAIN_REF_JSON = os.path.join(HERE, "tests", "data",
@@ -420,6 +459,29 @@ T1_STEPS, T1_CKPT_EVERY, T1_FAIL_AT = 6, 3, 4
 # (1,024 pages: 4.0 GB over 60 layers)
 V1_TEXT, V1_DECODE, V1_SEED, V1_REQUESTS = 128, 16, 23, 4
 V1_ENGINE = dict(page_size=16, num_pages=1024, max_batch=4, max_seq=4096)
+
+# ------------------------------------------------- the chaos rows, R1-R5
+CHAOS_REF_JSON = os.path.join(HERE, "tests", "data",
+                              "port_chaos_reference.json")
+# R1-R3 at benchmarks/chaos.py's defaults: 60,000 accesses, 2^15 pages
+R_TRACE_LEN, R_MAX_PAGES = 60_000, 1 << 15
+# R5: InternLM2-1.8B at full width in f32 (S2's weights), S3's first 4
+# requests with answers capped at M_ANSWER_CAP, an engine of 512 pages of
+# 16 (8,192 tokens: the first 3 of the 4 at once) and batch 3
+R5_REQUESTS = 4
+R5_ENGINE = dict(page_size=16, num_pages=512, max_batch=3, max_seq=4096)
+R5_MAX_STEPS = 256
+# the crash row snapshots every 16 steps; the others only at step 0
+R5_SNAPSHOT_EVERY = 16
+# the faults, (engine step, pages): 2 live pages corrupted at step 6; 8
+# pages drawn for loss at step 3, of which the free ones are retired.  (Of
+# 3 draws, pages 29, 136 and 36, all are owned at step 3 and would be
+# skipped; 8 draws add 359 and 371 of the free block 320-383, which the
+# fourth request's buddy blocks then have to avoid.)
+R5_CRASH, R5_KV, R5_LOSS = 20, (6, 2), (3, 8)
+# a token of a faulted row must equal the fault-free run's wherever the
+# fault-free top-1 leads its top-2 by more than this (S2's rule)
+R5_MARGIN = 2 * LOGIT_ATOL
 
 
 def fail(msg: str) -> None:
@@ -2142,7 +2204,7 @@ def main() -> int:
     if "jax" in sys.modules:
         fail("the port imported jax")
     for ref_file in (REF_JSON, SERVE_REF_JSON, SCEN_REF_JSON,
-                     FAMILY_REF_JSON, TRAIN_REF_JSON):
+                     FAMILY_REF_JSON, TRAIN_REF_JSON, CHAOS_REF_JSON):
         if not os.path.exists(ref_file):
             fail(f"missing the JAX reference fixture {ref_file}")
     dev = torch.device("cuda", 0)
@@ -2218,6 +2280,7 @@ def main() -> int:
         fail("the main path did not launch the tlb_sweep kernel")
     if launches["paged_attention"] or launches["flash_attention"]:
         fail("the sweep launched an attention kernel")
+    check_no_rung("phase 2", sweep.stats)
     walks = {}
     for c, r, rc, kind in zip(cells, sweep.results, ref["cells"], kinds_of):
         want = np.asarray(c.mapping.ppn)[c.trace]
@@ -2421,6 +2484,12 @@ def main() -> int:
         **{tag: n["paged_attention"] for tag, n in m_launches.items()},
         V1=v1["engine"]["launches"]["paged_attention"])
     pa["at_v1_step"] = v1["paged_layer"]["line"]
+    r_launches = serve_out["chaos"]["launches"]
+    tlb["launches_by_path"].update(
+        {tag: r_launches[tag]["tlb_sweep"] for tag in ("R1", "R2", "R3")})
+    for line, key in ((pa, "paged_attention"), (fa, "flash_attention")):
+        line["launches_by_path"].update(
+            {tag: r_launches[tag][key] for tag in ("R4", "R5")})
     for key, t, errs in (("at_d80", e1["layer_timing"], e1["vs_plain"]),
                          ("at_llava", v1["flash_layer"], None)):
         fa[key] = dict(shape=t["shape"], ms=round(t["ms"], 5),
@@ -2514,6 +2583,8 @@ def serve_phases(torch, np, dev, pa_build, pa_ops):
           f"{s2['launches']} ({s2['prefills']} prefills x {n_layers} "
           "layers through the flash-attention kernel)")
     out["s2"] = s2
+    # phase R runs here, on S2's f32 weights
+    out["chaos"] = chaos_phases(torch, np, dev, model32, params)
 
     # ------------------------- S3. the slice at conversation-trace lengths
     t0 = phase("S3. serving, bf16: 16 requests at the Azure conversation "
@@ -4100,6 +4171,452 @@ def v1_phase(torch, np, dev, flush):
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The chaos rows, R1-R5: the robustness harness on the card (the checks
+# and the serving helper also run on the CPU in the tests)
+# ---------------------------------------------------------------------------
+
+def check_no_rung(where: str, stats: dict) -> None:
+    """Fail where a ``run_sweep``'s stats show a rung of the recovery
+    ladder: only R2's injected runs may take one."""
+    if stats["bisections"] or stats["oracle_fallbacks"]:
+        fail(f"{where}: run_sweep took the recovery ladder ({stats})")
+
+
+def _same_bits(a, b) -> bool:
+    import numpy as np
+    return (all(getattr(a, f) == getattr(b, f) for f in CELL_FIELDS)
+            and a.coverage_mean == b.coverage_mean
+            and np.array_equal(a.ppn, b.ppn))
+
+
+def check_parity_sweeps(sweeps, ref: dict) -> int:
+    """R1: ``chaos.parity_sweeps``' runs against the fixture's parity part:
+    each world's digests and fault schedule, then every cell (spec, name,
+    counters, coverage, ppn digest; tolerance 0), every translation the
+    live mapping's, and ``ecc`` equal to fault-free bit for bit.  Returns
+    the cells checked; raises ``ValueError`` on a difference."""
+    import numpy as np
+    if [sw["scenario"] for sw in sweeps] != [w["scenario"]
+                                              for w in ref["worlds"]]:
+        raise ValueError("the parity worlds differ from the fixture's")
+    n = 0
+    for sw, wrec in zip(sweeps, ref["worlds"]):
+        name = sw["scenario"]
+        want = dict(wrec)
+        faults = want.pop("faults")
+        if world_record(name, sw["data"]) != want:
+            raise ValueError(f"{name}: the world differs from the JAX one")
+        if [list(f) for f in sw["world"].faults] != faults:
+            raise ValueError(f"{name}: fault schedule {sw['world'].faults}, "
+                             f"JAX {faults}")
+        recs = [c for c in ref["cells"] if c["scenario"] == name]
+        res = sw["result"]
+        if len(recs) != len(sw["cells"]):
+            raise ValueError(f"{name}: {len(sw['cells'])} cells, JAX "
+                             f"{len(recs)}")
+        want_ppn = world_translations(sw["data"].world, sw["data"].trace)
+        for c, r, rec in zip(sw["cells"], res, recs):
+            what = f"{name}/{r.name}/{rec['policy']}"
+            spec = json.loads(json.dumps(dataclasses.asdict(c.spec)))
+            if spec != rec["spec"]:
+                raise ValueError(f"{what}: spec differs from the JAX one")
+            check_against_record(r, rec, what)
+            if not np.array_equal(r.ppn, want_ppn):
+                raise ValueError(f"{what}: a translation is not the live "
+                                 "mapping's")
+            n += 1
+        k = len(sw["specs"])
+        for j, s in enumerate(sw["specs"]):
+            if not _same_bits(res[k + j], res[2 * k + j]):
+                raise ValueError(f"{name}/{s.name}: ecc differs from the "
+                                 "fault-free run")
+    return n
+
+
+def check_serve_fixture(runs: dict, ref: dict) -> None:
+    """R4: each run of ``chaos.serve_runs`` against the fixture's serve
+    part: the generated tokens and the report's counts; raises
+    ``ValueError`` on a difference."""
+    for kind, want in ref["runs"].items():
+        got = runs[kind]
+        out = [got["outputs"][rid] for rid in sorted(got["outputs"])]
+        if out != want["outputs"]:
+            raise ValueError(f"{kind}: tokens {out}, the JAX engine's "
+                             f"{want['outputs']}")
+        rep = {k: got["report"][k] for k in want["report"]}
+        if rep != want["report"]:
+            raise ValueError(f"{kind}: report {rep}, the JAX engine's "
+                             f"{want['report']}")
+
+
+def faulted_serve(model, params, engine_kw, requests, plans, ckpt_root,
+                  device, max_steps, snapshot_every):
+    """R5's runs: ``chaos.serve_runs`` over ``plans``, each engine behind
+    an :class:`EngineProbe` that keeps the f32 logits row behind every
+    generated token and each decode step's classes K, snapshot and restore
+    timed on the host clock (ending in a synchronise).  Returns ``{kind:
+    dict(outputs, report, wall_s, logits, K, save_s, restore_s,
+    snapshot_bytes, decode_s, prefill_s)}``."""
+    import torch
+    from repro_torch.checkpoint.checkpointer import leaf_paths
+    from repro_torch.robustness import chaos
+    from repro_torch.serve import EngineConfig, ServingEngine
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    recs = {}
+
+    def on_run(kind):
+        recs[kind] = dict(logits={}, steps=[], prefill_s=[], decode_s=[],
+                          save_s=[], restore_s=[], snapshot_bytes=0)
+
+    def rec():
+        """The record of the run under way (the last one begun)."""
+        return recs[next(reversed(recs))]
+
+    class TimedEngine(ServingEngine):
+        def snapshot(self, ckpt_dir, step=None):
+            sync()
+            t = time.perf_counter()
+            step = super().snapshot(ckpt_dir, step)
+            rec()["save_s"].append(time.perf_counter() - t)
+            rec()["snapshot_bytes"] = sum(x.numel() * x.element_size()
+                                          for _, x in leaf_paths(self.state))
+            return step
+
+        def restore(self, ckpt_dir, step=None):
+            t = time.perf_counter()
+            step = super().restore(ckpt_dir, step)
+            sync()
+            rec()["restore_s"].append(time.perf_counter() - t)
+            return step
+
+    def make_engine():
+        r = rec()
+        eng = TimedEngine(model, params, EngineConfig(**engine_kw),
+                          device=device)
+        probe = EngineProbe(model, eng, keep_logits=True)
+        probe.logits, probe.steps = r["logits"], r["steps"]
+        probe.prefill_s, probe.decode_s = r["prefill_s"], r["decode_s"]
+        eng.model = probe
+        return eng
+
+    runs = chaos.serve_runs(make_engine, requests, plans, ckpt_root,
+                            max_steps, snapshot_every, sync, on_run)
+    for kind, run in runs.items():
+        ks = []
+        for st in recs[kind].pop("steps"):
+            if not ks or ks[-1] != list(st["K"]):
+                ks.append(list(st["K"]))
+        run.update(recs[kind], K=ks)
+    return runs
+
+
+def hold_faulted_row(base: dict, row: dict, vocab: int, exact: bool,
+                     margin: float = R5_MARGIN, atol: float = LOGIT_ATOL
+                     ) -> dict:
+    """A faulted run of :func:`faulted_serve` against the fault-free one.
+    ``exact``: the tokens and every logits row equal bit for bit.  Else
+    S2's rule: each token equal wherever the fault-free top-1 leads its
+    top-2 by more than ``margin`` (a request that differs at a near-tie
+    is left out from there on, and counted), and each logits row within
+    ``atol`` of the fault-free one while the tokens agree.  Returns the
+    counts; raises ``ValueError`` on a difference."""
+    import numpy as np
+    out = dict(checked=0, left_out=0, diverged=[], max_abs_err=0.0)
+    if row["outputs"].keys() != base["outputs"].keys():
+        raise ValueError("the faulted run served other requests")
+    if exact:
+        if row["outputs"] != base["outputs"]:
+            raise ValueError("tokens differ from the fault-free run's")
+        if row["logits"].keys() != base["logits"].keys():
+            raise ValueError("logits kept for other tokens")
+        for key, want in base["logits"].items():
+            if row["logits"][key].tobytes() != want.tobytes():
+                raise ValueError(f"request {key[0]} token {key[1]}: logits "
+                                 "differ from the fault-free run's bits")
+        out["checked"] = len(base["logits"])
+        return out
+    for rid, want in base["outputs"].items():
+        got = row["outputs"][rid]
+        if len(got) != len(want):
+            raise ValueError(f"request {rid}: {len(got)} tokens, the "
+                             f"fault-free run {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            ref_row = base["logits"][(rid, i)][:vocab]
+            second, first = np.partition(ref_row, -2)[-2:]
+            if g != w:
+                if first - second > margin:
+                    raise ValueError(
+                        f"request {rid} token {i}: {g}, the fault-free "
+                        f"run's {w} (top-1 lead {first - second:.4g} > "
+                        f"{margin})")
+                out["left_out"] += len(want) - i
+                out["diverged"].append(rid)
+                break
+            err = float(np.abs(row["logits"][(rid, i)][:vocab]
+                               - ref_row).max())
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            if err > atol:
+                raise ValueError(f"request {rid} token {i}: logits differ "
+                                 f"from the fault-free run's by {err:.3g} "
+                                 f"> {atol}")
+            out["checked"] += 1
+    return out
+
+
+def r5_plans():
+    """R5's faulted runs, ``[(kind, plan, snapshot_every)]``: a crash, KV
+    corruption and page loss (seed 1908); the fault-free run that
+    ``chaos.serve_runs`` puts first snapshots every ``R5_MAX_STEPS``."""
+    from repro_torch.robustness import (EngineCrash, FaultPlan,
+                                        KVCorruption, PageLoss)
+    from repro_torch.robustness.chaos import CHAOS_SEED
+    return [
+        ("engine-crash", FaultPlan(CHAOS_SEED, (EngineCrash(R5_CRASH),)),
+         R5_SNAPSHOT_EVERY),
+        ("kv-corruption", FaultPlan(CHAOS_SEED, (KVCorruption(*R5_KV),)),
+         R5_MAX_STEPS),
+        ("page-loss", FaultPlan(CHAOS_SEED, (PageLoss(*R5_LOSS),)),
+         R5_MAX_STEPS)]
+
+
+def chaos_phases(torch, np, dev, model32, params32):
+    """Phase R (R1-R5), the robustness harness on the card; ``model32`` /
+    ``params32`` are S2's full-width f32 model and weights.  Returns the
+    numbers for ``chip_smoke.json``, with each row's launch counts."""
+    import shutil
+    import warnings
+    from repro_torch.robustness import chaos
+    ref = json.load(open(CHAOS_REF_JSON))
+    out, launches = {}, {}
+
+    def print_rows(rows):
+        for r in rows:
+            print(f"  {r['fault']:16s} {r['scenario']:14s} {r['cell']:28s} "
+                  f"{r['status']:9s} {r['detail']}")
+        lost = [r for r in rows if r["status"] != "recovered"]
+        if lost:
+            fail(f"rows not recovered: {lost}")
+
+    # --------------------------------------------------------- R1. parity
+    t0 = phase(f"R1. TLB parity faults at bench size: mt-serve-mix and "
+               f"nested-vm-mix, 2^15 pages, {R_TRACE_LEN:,} accesses, 3 "
+               "flips; Base / COLT / |K|=3 x parity / ecc / fault-free")
+    torch.cuda.synchronize()
+    reset_counts()
+    sweeps = chaos.parity_sweeps(R_TRACE_LEN, R_MAX_PAGES, dev)
+    torch.cuda.synchronize()
+    launches["R1"] = launch_counts()
+    try:
+        n = check_parity_sweeps(sweeps, ref["parity"])
+    except ValueError as e:
+        fail(f"R1: {e}")
+    for sw in sweeps:
+        check_no_rung(f"R1 {sw['scenario']}", sw["result"].stats)
+    n_batches = sum(sw["result"].stats["n_batches"] for sw in sweeps)
+    if launches["R1"] != dict(tlb_sweep=n_batches, paged_attention=0,
+                              flash_attention=0):
+        fail(f"R1: launches {launches['R1']}, want {n_batches} of the TLB "
+             "kernel only")
+    rows = chaos.parity_rows(sweeps)
+    print(f"{n} cells equal to the JAX fixture (counters, coverage, ppn "
+          f"sha256), every translation the live mapping's, ecc == "
+          f"fault-free bit for bit; launches {launches['R1']}; run_sweep "
+          f"walls {[sw['result'].stats['wall_s'] for sw in sweeps]} s")
+    print_rows(rows)
+    out["r1"] = dict(rows=rows, cells=n, faults={
+        sw["scenario"]: [list(f) for f in sw["world"].faults]
+        for sw in sweeps}, wall_s=time.time() - t0)
+    del sweeps
+
+    # ---------------------------------------------------------- R2. ladder
+    t0 = phase("R2. the recovery ladder on the card: one injected launch "
+               "failure (bisection), a cursed cell (the oracle)")
+    reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        b = chaos.backend_sweeps(R_TRACE_LEN, R_MAX_PAGES, dev)
+    torch.cuda.synchronize()
+    launches["R2"] = launch_counts()
+    (clean, n_clean, _), (bis, n_bis, inj_bis), (orc, n_orc, inj_orc) = \
+        b["clean"], b["bisection"], b["oracle"]
+    check_no_rung("R2 clean", clean.stats)
+    if not (bis.stats["bisections"] >= 1
+            and bis.stats["oracle_fallbacks"] == 0 and inj_bis == 1):
+        fail(f"R2: one injected failure gave {bis.stats}, {inj_bis} "
+             "injected; want bisections >= 1 and no oracle fallback")
+    if not (orc.stats["bisections"] >= 1
+            and orc.stats["oracle_fallbacks"] == 1):
+        fail(f"R2: the cursed cell gave {orc.stats}; want one oracle "
+             "fallback")
+    for res, what in ((bis, "bisection"), (orc, "oracle")):
+        for r, c in zip(res, clean):
+            if not _same_bits(r, c):
+                fail(f"R2 {what}: {r.name} differs from the clean run")
+    if not (n_clean >= 1 and n_bis > n_clean and n_orc >= 1
+            and launches["R2"]["tlb_sweep"] == n_clean + n_bis + n_orc):
+        fail(f"R2: launches clean {n_clean}, bisection {n_bis}, oracle "
+             f"{n_orc}, in all {launches['R2']}: the re-launches do not "
+             "show")
+    for w in caught:
+        if issubclass(w.category, RuntimeWarning):
+            print(f"  warning: {w.message}")
+    rows = chaos.backend_rows(b)
+    print(f"both runs equal the clean run bit for bit; TLB launches clean "
+          f"{n_clean}, one failure {n_bis}, cursed cell {n_orc}")
+    print_rows(rows)
+    out["r2"] = dict(rows=rows, launches=dict(clean=n_clean, bisection=n_bis,
+                                              oracle=n_orc),
+                     stats=dict(bisection=bis.stats, oracle=orc.stats),
+                     wall_s=time.time() - t0)
+    del b
+
+    # ----------------------------------------------------------- R3. cache
+    t0 = phase("R3. sweep-cache corruption: truncate, garbage, schema")
+    reset_counts()
+    c = chaos.cache_sweeps(R_TRACE_LEN, R_MAX_PAGES, dev)
+    torch.cuda.synchronize()
+    launches["R3"] = launch_counts()
+    check_no_rung("R3 first", c["first"].stats)
+    check_no_rung("R3 again", c["again"].stats)
+    again = c["again"]
+    if again.stats["cache_quarantined"] != 3 or not all(
+            _same_bits(a, f) for a, f in zip(again, c["first"])):
+        fail(f"R3: {again.stats}; want 3 entries quarantined and the "
+             "results equal")
+    rows = chaos.cache_rows(c)
+    print(f"3 entries quarantined and recomputed, results equal; launches "
+          f"{launches['R3']}")
+    print_rows(rows)
+    out["r3"] = dict(rows=rows, stats=again.stats, wall_s=time.time() - t0)
+    del c
+
+    # ---------------------------------------- R4. the reference's serve rows
+    t0 = phase("R4. the chaos bench's serve rows on the card (reduced "
+               "InternLM2-1.8B, f32) vs the JAX fixture")
+    make_engine, cfg = chaos.tiny_engine_factory(dev)
+    requests = chaos.serve_requests(cfg.vocab)
+    if [[list(p), n] for p, n in requests] != ref["serve"]["requests"]:
+        fail("R4: the requests differ from the fixture's")
+    torch.cuda.synchronize()
+    reset_counts()
+    ckpt_root = os.path.join(HERE, "build", "ckpt_r4")
+    runs = chaos.serve_runs(make_engine, requests, chaos.serve_plans(),
+                            ckpt_root)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches["R4"] = launch_counts()
+    try:
+        check_serve_fixture(runs, ref["serve"])
+    except ValueError as e:
+        fail(f"R4: {e}")
+    if not (launches["R4"]["flash_attention"] >= 1
+            and launches["R4"]["paged_attention"] >= 1
+            and launches["R4"]["tlb_sweep"] == 0):
+        fail(f"R4: launches {launches['R4']}")
+    rows = chaos.serve_rows(runs)
+    print(f"every run's tokens and report counts equal the JAX engine's; "
+          f"launches {launches['R4']}")
+    print_rows(rows)
+    out["r4"] = dict(rows=rows, reports={k: {x: v for x, v in
+                                             r["report"].items()
+                                             if x != "metrics"}
+                                         for k, r in runs.items()},
+                     wall_s=time.time() - t0)
+    del make_engine, runs
+
+    # ------------------------------------------------------ R5. full width
+    t0 = phase(f"R5. InternLM2-1.8B at full width, f32: S3's first "
+               f"{R5_REQUESTS} requests (answers capped at {M_ANSWER_CAP}) "
+               f"through a crash at step {R5_CRASH}, KV corruption at step "
+               f"{R5_KV[0]} and page loss at step {R5_LOSS[0]}")
+    vocab = model32.cfg.vocab
+    requests = [(p, min(n, M_ANSWER_CAP))
+                for p, n in s3_requests(vocab)[:R5_REQUESTS]]
+    gc.collect()
+    torch.cuda.synchronize()
+    reset_counts()
+    ckpt_root = os.path.join(HERE, "build", "ckpt_r5")
+    runs = faulted_serve(model32, params32, R5_ENGINE, requests, r5_plans(),
+                         ckpt_root, dev, R5_MAX_STEPS, R5_MAX_STEPS)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches["R5"] = launch_counts()
+    gc.collect()
+    base = runs["baseline"]
+    checks = {}
+    try:
+        for kind in ("engine-crash", "kv-corruption", "page-loss"):
+            checks[kind] = hold_faulted_row(base, runs[kind], vocab,
+                                            exact=kind == "engine-crash")
+    except ValueError as e:
+        fail(f"R5 {kind}: {e}")
+    rep = {k: r["report"] for k, r in runs.items()}
+    if rep["engine-crash"]["restarts"] != 1:
+        fail(f"R5: the crash row restarted {rep['engine-crash']['restarts']}"
+             " times")
+    if rep["kv-corruption"]["preempted"] < 1:
+        fail("R5: KV corruption preempted no request")
+    if rep["page-loss"]["pages_lost"] < 1:
+        fail("R5: no page was lost")
+    if not (launches["R5"]["flash_attention"] >= 1
+            and launches["R5"]["paged_attention"] >= 1
+            and launches["R5"]["tlb_sweep"] == 0):
+        fail(f"R5: launches {launches['R5']}")
+    rows = []
+    for kind, run in runs.items():
+        r = run["report"]
+        print(f"{kind}: engine wall {run['wall_s']:.2f} s, {r['steps']} "
+              f"steps, crashes {r['crashes']}, preempted {r['preempted']}, "
+              f"kv corrupted {r['kv_corrupted']}, pages lost "
+              f"{r['pages_lost']}; K over the run {run['K']}; "
+              f"{len(run['save_s'])} snapshots of "
+              f"{run['snapshot_bytes'] / 1e9:.3f} GB, save "
+              f"{[round(x, 3) for x in run['save_s']]} s, restore "
+              f"{[round(x, 3) for x in run['restore_s']]} s; "
+              f"{len(run['prefill_s'])} prefills, decode median "
+              f"{statistics.median(run['decode_s']) * 1e3:.2f} ms")
+        if kind == "baseline":
+            continue
+        ch = checks[kind]
+        print(f"  vs fault-free: " + (
+            f"tokens and all {ch['checked']} logits rows equal bit for bit"
+            if kind == "engine-crash" else
+            f"{ch['checked']} tokens equal with logits within "
+            f"{LOGIT_ATOL} (max abs err {ch['max_abs_err']:.3g}), "
+            f"{ch['left_out']} left out past a near-tie "
+            f"(requests {ch['diverged']})"))
+        rows.append({"fault": kind, "scenario": "internlm2-1.8b",
+                     "cell": f"{len(requests)} reqs", "status": "recovered",
+                     "detail": (f"crashes={r['crashes']} "
+                                f"preempted={r['preempted']} "
+                                f"pages_lost={r['pages_lost']} "
+                                f"wall={run['wall_s']:.1f}s")})
+    print(f"launches {launches['R5']}")
+    print_rows(rows)
+    out["r5"] = dict(
+        rows=rows, checks=checks,
+        runs={k: dict(report={x: v for x, v in r["report"].items()
+                              if x != "metrics"},
+                      wall_s=r["wall_s"], K=r["K"], save_s=r["save_s"],
+                      restore_s=r["restore_s"],
+                      snapshot_bytes=r["snapshot_bytes"],
+                      prefills=len(r["prefill_s"]),
+                      decode_median_s=statistics.median(r["decode_s"]),
+                      outputs=r["outputs"])
+              for k, r in runs.items()},
+        wall_s=time.time() - t0)
+    del runs, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = launches
     return out
 
 

@@ -12,10 +12,20 @@ objects bit-identical to the JAX package's ``run_sweep``.
 Execution goes through :func:`repro_torch.kernels.tlb_sweep.ops.run_lanes`:
 on the card (``device="cuda"``, the default) one launch of the CUDA
 TLB-sweep kernel per packed batch; with ``device="cpu"`` the plain torch
-version.  Asking for the card on a machine without one raises.  A batch
-that fails raises too: the reference's recovery ladder (fallback backend,
-bisection, per-cell oracle) is not ported, so a failing kernel can never
-be hidden behind another executor.
+version.  Asking for the card on a machine without one raises.
+
+A batch failed by the chaos harness goes down the recovery ladder
+(:func:`_run_batch_resilient`): the kernel again on each half of the batch
+(bisection), and a single cell that fails every launch to the pure-python
+oracle.  Results are identical by construction.  Unlike the reference's
+ladder there is no second backend to retry on: the plain torch version
+takes about 10 ms a step on the card, and putting it in the kernel's place
+would hide the kernel.  The ladder catches only :class:`BackendFault`,
+which the chaos harness raises through :data:`_BACKEND_FAULT_HOOK`; a real
+launch failure, a shape refusal (``ValueError``) or a build failure
+propagates, so the kernel's work never moves to the CPU behind the
+caller's back.  Every rung taken warns and is counted in ``run_sweep``'s
+stats (``bisections``, ``oracle_fallbacks``).
 
 Dynamic, multi-tenant, nested and parity-fault worlds run as
 segmented lanes exactly as in the reference: records per ``(world,
@@ -31,6 +41,7 @@ import hashlib
 import os
 import subprocess
 import time
+import warnings
 import zipfile
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -359,9 +370,39 @@ def pack_batch(sub: Sequence[SweepCell]):
     return lanes, stacks, st0, seg_bounds
 
 
+class BackendFault(RuntimeError):
+    """An injected sweep-batch launch failure: the one exception the
+    recovery ladder catches."""
+
+
+#: Chaos hook: :func:`repro_torch.robustness.faults.backend_fault_injection`
+#: installs a callable here — ``hook(cells, backend)``, ``backend`` the
+#: device type (``"cuda"`` or ``"cpu"``) — that raises :class:`BackendFault`
+#: to make the batch fail before its launch.  ``None`` in production.
+_BACKEND_FAULT_HOOK = None
+
+
+def _oracle_result(cell: SweepCell) -> SimResult:
+    """Pure-python oracle for one cell — the last rung a failing cell is
+    bisected down to (bit-exact with the kernel, so recovery never changes
+    results)."""
+    from .simulator import (run_method_dynamic, run_method_multitenant,
+                            run_method_nested, run_method_parity)
+    w = cell.mapping
+    if isinstance(w, ParityWorld):
+        return run_method_parity(cell.spec, w, cell.trace)
+    if isinstance(w, NestedMapping):
+        return run_method_nested(cell.spec, w, cell.trace)
+    if isinstance(w, MultiTenantMapping):
+        return run_method_multitenant(cell.spec, w, cell.trace)
+    return run_method_dynamic(cell.spec, w, cell.trace)
+
+
 def _run_batch(sub: List[SweepCell], device: torch.device
                ) -> List[SimResult]:
     """Pack and simulate one batch; per-cell results in ``sub`` order."""
+    if _BACKEND_FAULT_HOOK is not None:
+        _BACKEND_FAULT_HOOK(sub, device.type)
     lanes, stacks, st0, seg_bounds = pack_batch(sub)
     stF, ppns = run_lanes(lanes, stacks, st0, seg_bounds, device=device)
     counters = stF["counters"].cpu().numpy()
@@ -387,6 +428,34 @@ def _run_batch(sub: List[SweepCell], device: torch.device
     return out
 
 
+def _run_batch_resilient(sub: List[SweepCell], device: torch.device,
+                         fstats: Dict[str, int]) -> List[SimResult]:
+    """One batch with the recovery ladder: kernel → bisection → per-cell
+    oracle.
+
+    A batch that raises :class:`BackendFault` is split in two and each
+    half launched again, so that one poisoned lane cannot take its
+    batchmates down; a single cell that fails every launch is handed to the
+    pure-python oracle.  Nothing else is caught.  Each rung warns, naming
+    the exception, and is counted in ``fstats``.
+    """
+    try:
+        return _run_batch(sub, device)
+    except BackendFault as e:
+        if len(sub) == 1:
+            warnings.warn(f"run_sweep: {e!r}; cell {sub[0].spec.name!r} "
+                          "runs on the pure-python oracle", RuntimeWarning,
+                          stacklevel=2)
+            fstats["oracle_fallbacks"] += 1
+            return [_oracle_result(sub[0])]
+        warnings.warn(f"run_sweep: {e!r}; bisecting the batch of {len(sub)} "
+                      "cells", RuntimeWarning, stacklevel=2)
+        fstats["bisections"] += 1
+        mid = len(sub) // 2
+        return (_run_batch_resilient(sub[:mid], device, fstats)
+                + _run_batch_resilient(sub[mid:], device, fstats))
+
+
 def batches_of(cells: Sequence[SweepCell], todo: Sequence[int]
                ) -> List[List[int]]:
     """The reference's partition: static cells never ride a multi-segment
@@ -407,10 +476,13 @@ def run_sweep(cells: Sequence[SweepCell], *, cache: bool = True,
     Results are bit-identical to the JAX package's ``run_sweep``
     (``tests/test_torch_sweep.py``).  ``device`` is ``"cuda"`` (the CUDA
     kernel; raises ``RuntimeError`` without a card) or ``"cpu"`` (the
-    plain torch version).  With ``cache`` enabled, previously simulated
-    cells (same spec, world/trace *content* and code version — see
-    :func:`cell_key`) are loaded from ``cache_dir`` and skipped;
-    ``cache=False`` bypasses the cache.
+    plain torch version).  An injected :class:`BackendFault` goes down
+    the recovery ladder (:func:`_run_batch_resilient`); ``stats`` counts
+    its ``bisections`` and ``oracle_fallbacks``, and ``cache_quarantined``
+    the corrupt cache entries moved aside and recomputed.  With ``cache``
+    enabled, previously simulated cells (same spec, world/trace *content*
+    and code version — see :func:`cell_key`) are loaded from ``cache_dir``
+    and skipped; ``cache=False`` bypasses the cache.
 
     Usage — compare two methods on a demand-paged mapping::
 
@@ -430,7 +502,8 @@ def run_sweep(cells: Sequence[SweepCell], *, cache: bool = True,
     cells = list(cells)
     results: List[Optional[SimResult]] = [None] * len(cells)
     todo: List[int] = []
-    hits = quarantined = 0
+    hits = 0
+    fstats = dict(cache_quarantined=0, bisections=0, oracle_fallbacks=0)
     digests: Dict[int, str] = {}   # id-keyed; cells keep the arrays alive
     keys = [cell_key(c, digests) if cache else "" for c in cells]
     for i, c in enumerate(cells):
@@ -439,7 +512,7 @@ def run_sweep(cells: Sequence[SweepCell], *, cache: bool = True,
             r, corrupt = _cache_load(path)
             if corrupt:
                 _quarantine_cache_entry(path)
-                quarantined += 1
+                fstats["cache_quarantined"] += 1
             if r is not None:
                 results[i] = r
                 hits += 1
@@ -447,9 +520,13 @@ def run_sweep(cells: Sequence[SweepCell], *, cache: bool = True,
         todo.append(i)
 
     batches = batches_of(cells, todo)
+    if batches and dev.type == "cuda":
+        # a build failure raises here, before any batch and its ladder
+        from ..kernels.tlb_sweep import _build
+        _build.load()
     for group in batches:
         sub = [cells[i] for i in group]
-        for j, r in enumerate(_run_batch(sub, dev)):
+        for j, r in enumerate(_run_batch_resilient(sub, dev, fstats)):
             i = group[j]
             results[i] = r
             if cache:
@@ -457,6 +534,6 @@ def run_sweep(cells: Sequence[SweepCell], *, cache: bool = True,
 
     stats = dict(n_cells=len(cells), cache_hits=hits,
                  simulated=len(todo), n_batches=len(batches),
-                 device=str(dev), cache_quarantined=quarantined,
-                 wall_s=round(time.time() - t0, 3))
+                 device=str(dev), wall_s=round(time.time() - t0, 3),
+                 **fstats)
     return SweepResult(results=results, stats=stats)  # type: ignore[arg-type]

@@ -25,10 +25,11 @@ The engine serves every decoding family; a VLM (``llava-next-34b``) is
 served on text prompts, as the JAX engine serves it (it takes no
 ``patch_embeds``: ``Model.prefill`` does), and an encoder is refused, as
 there.  The engine runs on the card unless ``device="cpu"`` is asked for
-(then the paged op takes its plain version).  Not ported yet: ``snapshot`` /
-``restore`` (they need the checkpointer, ROADMAP A13).  Of the JAX
-``EngineConfig``, ``interpret`` (Pallas interpret mode) has no meaning here
-and ``greedy`` is read nowhere (decoding is greedy): both are dropped.
+(then the paged op takes its plain version).  ``snapshot`` / ``restore``
+checkpoint the whole engine through the port's ``Checkpointer`` for
+crash-restart.  Of the JAX ``EngineConfig``, ``interpret`` (Pallas
+interpret mode) has no meaning here and ``greedy`` is read nowhere
+(decoding is greedy): both are dropped.
 """
 from __future__ import annotations
 
@@ -282,8 +283,57 @@ class ServingEngine:
         return m
 
     # ------------------------------------------------------------------
-    # Robustness: KV-page quarantine
+    # Robustness: crash-restart checkpoints and KV-page quarantine
     # ------------------------------------------------------------------
+    def snapshot(self, ckpt_dir: str, step: int = None) -> int:
+        """Checkpoint the complete engine state: the KV pools and per-slot
+        recurrent state through the atomic
+        :class:`~repro_torch.checkpoint.checkpointer.Checkpointer`, the
+        request/scheduler/allocator bookkeeping in its ``extras``.  A fresh
+        engine built from the same (model, params, config) continues
+        token-exactly from it after :meth:`restore`."""
+        from ..checkpoint.checkpointer import Checkpointer
+        extras = dict(
+            requests={str(r): dict(prompt=[int(t) for t in q.prompt],
+                                   max_new_tokens=int(q.max_new_tokens),
+                                   generated=[int(t) for t in q.generated],
+                                   state=q.state)
+                      for r, q in self.requests.items()},
+            scheduler=self.sched.snapshot_state(),
+            allocator=self.allocator.snapshot_state(),
+            K=list(self.K), k_util=self._k_util, next_id=self._next_id,
+            metrics=dict(self.metrics))
+        step = int(self.metrics["steps"]) if step is None else int(step)
+        Checkpointer(ckpt_dir).save(step, self.state, extras, blocking=True)
+        return step
+
+    def restore(self, ckpt_dir: str, step: int = None) -> int:
+        """Reload a :meth:`snapshot` into this engine (crash-restart): each
+        saved tensor is copied into the engine's own state tensor on its
+        device.  Returns the engine step the snapshot was taken at."""
+        from ..checkpoint.checkpointer import Checkpointer, leaf_paths
+        tree, extras = Checkpointer(ckpt_dir).restore(step, target=self.state,
+                                                      device="cpu")
+        for (path, dst), (_, src) in zip(leaf_paths(self.state),
+                                         leaf_paths(tree)):
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(f"checkpoint leaf {path}: {src.dtype} "
+                                 f"{tuple(src.shape)}, the engine's "
+                                 f"{dst.dtype} {tuple(dst.shape)}")
+            dst.copy_(src)
+        self.requests = {
+            int(r): Request(int(r), [int(t) for t in d["prompt"]],
+                            int(d["max_new_tokens"]),
+                            [int(t) for t in d["generated"]], d["state"])
+            for r, d in extras["requests"].items()}
+        self.sched.restore_state(extras["scheduler"])
+        self.allocator.restore_state(extras["allocator"])
+        self.K = [int(k) for k in extras["K"]]
+        self._k_util = float(extras["k_util"])
+        self._next_id = int(extras["next_id"])
+        self.metrics = dict(extras["metrics"])
+        return int(extras["metrics"]["steps"])
+
     def quarantine_pages(self, pages) -> List[int]:
         """Corrupted-KV-page recovery: recompute-preempt every owning
         request (its ``generated`` tokens are kept, so re-prefill rebuilds

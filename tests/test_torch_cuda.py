@@ -18,11 +18,14 @@ paged-attention kernels must equal their plain version per class pass
 (o, m, l) and merged, f32 within 5e-5 and bf16 within 2e-2, at any split
 of a row's windows over blocks, keep the -1e30 semantics of wholly masked
 windows, refuse a window index outside the pool, and serve the reduced
-InternLM2 token for token like the CPU.  The flash kernels must equal
-their plain version (bf16 also within one bf16 ulp), give the same bits
-twice and from strided views, and refuse rows off 16-byte boundaries; at
-a query offset (the later chunks of a chunked prefill) they must equal
-their plain version and, causal, the whole call's rows bit for bit.  The
+InternLM2 token for token like the CPU; ``run_sweep``'s recovery ladder
+must recover an injected launch failure by bisection and a cursed cell by
+the oracle, and an engine's bf16 pools must round-trip a snapshot.  The
+flash kernels must equal their plain version (bf16 also within one bf16
+ulp), give the same bits twice and from strided views, and refuse rows
+off 16-byte boundaries; at a query offset (the later chunks of a chunked
+prefill) they must equal their plain version and, causal, the whole
+call's rows bit for bit.  The
 reduced MoE, hybrid and xLSTM models must prefill, prefill in chunks and
 decode on the card as on the CPU, and serve as the JAX engine's fixture
 records.
@@ -210,6 +213,78 @@ def test_run_method_and_standard_suite_launch_the_kernel(cuda):
     want = tcore.standard_suite(m, tr, device="cpu")
     assert [(r.name, r.walks, r.cycles, r.coverage_mean) for r in suite] == \
         [(r.name, r.walks, r.cycles, r.coverage_mean) for r in want]
+
+
+def test_recovery_ladder_on_the_card(cuda):
+    """``run_sweep``'s ladder on the card: one injected launch failure is
+    recovered by launching the halves (one launch more than the clean
+    run), a cursed cell by the oracle; both equal the clean run."""
+    import warnings
+    from _torch_helpers import world_cells
+    from repro_torch.robustness import backend_fault_injection
+    cells = world_cells(P, "multitenant")[:6]
+    n0 = LAUNCHES["tlb_sweep"]
+    clean = run_sweep(cells, cache=False, device="cuda")
+    n_clean = LAUNCHES["tlb_sweep"] - n0
+    assert n_clean == clean.stats["n_batches"] == 1
+    cursed = cells[1]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        n0 = LAUNCHES["tlb_sweep"]
+        with backend_fault_injection(n_failures=1) as st:
+            bis = run_sweep(cells, cache=False, device="cuda")
+        n_bis = LAUNCHES["tlb_sweep"] - n0
+        with backend_fault_injection(
+                n_failures=10_000,
+                predicate=lambda sub, bk: any(c is cursed for c in sub)):
+            orc = run_sweep(cells, cache=False, device="cuda")
+    assert st["injected"] == 1 and n_bis == n_clean + 1
+    assert (bis.stats["bisections"], bis.stats["oracle_fallbacks"]) == (1, 0)
+    assert orc.stats["bisections"] >= 1 and orc.stats["oracle_fallbacks"] == 1
+    for res in (bis, orc):
+        for r, want in zip(res, clean):
+            assert (r.name, r.walks, r.cycles, r.shootdowns,
+                    r.coverage_mean) == (want.name, want.walks, want.cycles,
+                                         want.shootdowns, want.coverage_mean)
+            np.testing.assert_array_equal(r.ppn, want.ppn)
+
+
+def test_snapshot_restore_round_trips_a_bf16_pool(cuda, tmp_path):
+    """A bf16 engine on the card snapshots mid-serve; a fresh engine
+    restores its pools bit for bit, in place, and finishes with the
+    uninterrupted run's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, RunConfig, params_from_numpy
+    from repro_torch.serve import EngineConfig, ServingEngine
+    model = Model(get_config("internlm2-1.8b", reduced=True),
+                  RunConfig(attn_q_chunk=32, attn_kv_chunk=32))
+    params = params_from_numpy(model.init_numpy(0), "cuda")
+    ec = EngineConfig(page_size=8, num_pages=64, max_batch=2, max_seq=64)
+    rng = np.random.default_rng(2024)
+    prompts = [list(rng.integers(0, 512, size=n)) for n in (45, 30, 13)]
+
+    def engine():
+        eng = ServingEngine(model, params, ec, device="cuda")
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=4)
+        return eng
+
+    straight = engine()
+    straight.run_to_completion()
+    eng = engine()
+    eng.step()
+    eng.step()
+    eng.snapshot(str(tmp_path))
+    fresh = ServingEngine(model, params, ec, device="cuda")
+    ptrs = {k: t.data_ptr() for k, t in fresh.state["pos0"].items()}
+    fresh.restore(str(tmp_path))
+    for k, t in fresh.state["pos0"].items():
+        assert t.dtype == torch.bfloat16 and t.is_cuda
+        assert t.data_ptr() == ptrs[k]
+        assert torch.equal(t, eng.state["pos0"][k])
+    fresh.run_to_completion()
+    assert [fresh.requests[i].generated for i in range(3)] == \
+        [straight.requests[i].generated for i in range(3)]
 
 
 # ---------------------------------------------------------------------------
