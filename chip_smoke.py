@@ -249,7 +249,8 @@ T0. the reduced ``internlm2-1.8b`` and ``hubert-xlarge`` trained on the card
     4 steps each, losses and grad norms against the JAX run in
     ``tests/data/port_train_reference.json`` (``T0_LOSS_ATOL``,
     ``T0_GNORM_RTOL``), no kernel launched;
-T1. HuBERT-XLarge trained at full width: f32 parameters (E1's), bf16
+T1. HuBERT-XLarge trained at full width and 12 of its 48 layers
+    (``T1_LAYERS``): f32 parameters (E1's first 12 layers), bf16
     compute, AdamW, remat full, 8 x 1,024 frames in 2 microbatches, 6
     steps with a checkpoint every 3, under
     ``torch.use_deterministic_algorithms(True)``: straight through, then
@@ -257,6 +258,23 @@ T1. HuBERT-XLarge trained at full width: f32 parameters (E1's), bf16
     checkpoint, whose losses and grad norms must equal the straight run's
     bit for bit; the step-time median, frames/s, peak memory, the
     checkpoint's save and restore seconds, and a profile of one more step;
+D1. InternLM2-1.8B trained at full width and depth (24 layers, d_model
+    2,048, vocab 92,544; f32 parameters, bf16 compute, AdamW, remat full)
+    through the distributed layer on an NCCL process group of one rank
+    (no gloo fallback: NCCL must initialise) under T1's deterministic
+    algorithms: 3 steps of 4 x 1,024 tokens by ``Trainer(param_shardings=
+    ...)`` on a ``("data", "model")`` (1, 1) mesh under
+    ``PARAM_RULES["default"]`` (parameters and AdamW state as DTensors,
+    every collective a real NCCL call on the one rank), then the same 3
+    steps by the unsharded trainer: losses, grad norms and every parameter
+    and state leaf equal bit for bit; the sharded run's checkpoint
+    restored into an unsharded trainer and the unsharded run's into a
+    sharded one, every leaf equal bit for bit; ``ef_allreduce`` of a 2^20
+    f32 gradient equal to the plain quantise-dequantise and its residual
+    to the remainder, and ``pipeline_forward`` at one stage equal to the
+    block applied in order, bit for bit; the phase's wall, both runs'
+    step medians, the checkpoint's GB and its save and restore seconds,
+    peak memory;
 V1. LLaVA-NeXT-34B at full width (60 layers, d_model 7,168, 56 / 8 heads,
     d_ff 20,480, vocab 64,000, 2,880 patches; 34.4 B parameters drawn by
     the streaming initialiser into bf16, 68.8 GB), every earlier model
@@ -450,8 +468,11 @@ E1_LOGIT_ATOL = DENSE_MARGIN
 # within 1.5e-6 and 1.5e-7
 T0_LOSS_ATOL, T0_GNORM_RTOL = 2e-4, 2e-4
 # T1: 8 clips of 20.48 s (1,024 frames) in 2 microbatches, 6 steps, a
-# checkpoint every 3, a failure injected at step 4
-T1_BATCH, T1_FRAMES, T1_MICRO = 8, 1024, 2
+# checkpoint every 3, a failure injected at step 4; 12 of HuBERT-XLarge's
+# 48 layers (a cut of depth, widths kept, E1's first 12 layers: D1 trains
+# a model at full depth through the same trainer, and the whole script
+# must stay inside its time limit with D1 added)
+T1_BATCH, T1_FRAMES, T1_MICRO, T1_LAYERS = 8, 1024, 2, 12
 T1_STEPS, T1_CKPT_EVERY, T1_FAIL_AT = 6, 3, 4
 # V1: LLaVA-NeXT's anyres image (2,880 patch embeddings) and 128 text
 # tokens, 16 greedy decode steps; then S3's first 4 requests (answers
@@ -459,6 +480,17 @@ T1_STEPS, T1_CKPT_EVERY, T1_FAIL_AT = 6, 3, 4
 # (1,024 pages: 4.0 GB over 60 layers)
 V1_TEXT, V1_DECODE, V1_SEED, V1_REQUESTS = 128, 16, 23, 4
 V1_ENGINE = dict(page_size=16, num_pages=1024, max_batch=4, max_seq=4096)
+
+# ------------------------------------------- the distributed layer, D1
+# InternLM2-1.8B (arXiv:2403.17297) at full width and depth, trained 3
+# steps of 4 x 1,024 tokens sharded (a (1, 1) mesh on one NCCL rank: the
+# card machine has one card) and unsharded
+D_ARCH = "internlm2-1.8b"
+D1_BATCH, D1_SEQ, D1_STEPS = 4, 1024, 3
+# the EF all-reduce's gradient, and pipeline_forward's microbatches
+# [n_micro, Bm, d] through one stage of tanh(x @ w)
+D1_EF_N = 1 << 20
+D1_PIPE = (8, 4, 2048)
 
 # ------------------------------------------------- the chaos rows, R1-R5
 CHAOS_REF_JSON = os.path.join(HERE, "tests", "data",
@@ -3652,11 +3684,12 @@ def train_against_fixture(rec, opt, trainer, device, ckpt_dir):
 
 
 def encoder_vlm_phases(torch, np, dev, flush):
-    """Phases E1, T0, T1 and V1; returns the numbers for
+    """Phases E1, T0, T1, D1 and V1; returns the numbers for
     ``chip_smoke.json``."""
     out = dict(e1=e1_phase(torch, np, dev, flush))
     out["t0"] = t0_phase(torch, dev)
     out["t1"] = t1_phase(torch, np, dev, out["e1"].pop("params"))
+    out["d1"] = d1_phase(torch, np, dev)
     out["v1"] = v1_phase(torch, np, dev, flush)
     return out
 
@@ -3868,19 +3901,27 @@ def t1_phase(torch, np, dev, params):
     from repro_torch.configs import get_config
     from repro_torch.data import DataPipeline, PipelineConfig
     from repro_torch.models import Model, RunConfig
+    from repro_torch.models.common import tree_map
     from repro_torch.optim import OptConfig
     from repro_torch.train import SimulatedFailure, Trainer, TrainerConfig
-    t0 = phase(f"T1. HuBERT-XLarge trained at full width: {T1_BATCH} x "
+    t0 = phase(f"T1. HuBERT-XLarge trained at full width and "
+               f"{T1_LAYERS} of its 48 layers: {T1_BATCH} x "
                f"{T1_FRAMES} frames in {T1_MICRO} microbatches, "
                f"{T1_STEPS} steps, a checkpoint every {T1_CKPT_EVERY}, a "
                f"failure at step {T1_FAIL_AT} and a resume")
-    model = Model(get_config(E_ARCH), RunConfig(microbatches=T1_MICRO))
+    model = Model(dataclasses.replace(get_config(E_ARCH),
+                                      n_layers=T1_LAYERS),
+                  RunConfig(microbatches=T1_MICRO))
     cfg = model.cfg
     root = os.path.join(HERE, "build", "ckpt_t1")
     shutil.rmtree(root, ignore_errors=True)
     opt = OptConfig(lr=1e-4, warmup_steps=2, total_steps=T1_STEPS)
     pc = PipelineConfig(batch=T1_BATCH, seq=T1_FRAMES, seed=7)
-    first = {"params": params}      # the straight run takes them over
+    # the straight run takes E1's first T1_LAYERS layers over (each
+    # layer's draw is its own stream: the T1_LAYERS-layer draw itself)
+    first = {"params": {k: (tree_map(lambda a: a[:T1_LAYERS].clone(), v)
+                            if k == "blocks" else v)
+                        for k, v in params.items()}}
     del params
 
     class T1Trainer(Trainer):
@@ -4007,6 +4048,224 @@ def t1_phase(torch, np, dev, params):
                 peak_memory_gb=peak, save_s=save_s,
                 restore_s=runs["resumed"]["restore_s"],
                 deterministic=True, profile_step=prof)
+
+
+def _bits_equal(a, b) -> bool:
+    """Two tensors of the same dtype, shape and bits (NaNs and signed
+    zeros included)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a = a.contiguous().view(as_int[a.element_size()])
+        b = b.contiguous().view(as_int[b.element_size()])
+    return torch.equal(a, b)
+
+
+def _leaves_equal(a, b) -> list:
+    """Paths of two trees (DTensors gathered) whose leaves differ in a
+    bit, shape or dtype, or which one of them lacks."""
+    from repro_torch.checkpoint.checkpointer import leaf_paths
+    from repro_torch.distributed.sharding import gather
+    la, lb = dict(leaf_paths(a)), dict(leaf_paths(b))
+    bad = sorted(set(la) ^ set(lb))
+    for p in sorted(set(la) & set(lb)):
+        x, y = gather(la[p]), gather(lb[p])
+        if not _bits_equal(x, y):
+            bad.append(p)
+    return bad
+
+
+def d1_phase(torch, np, dev):
+    """D1: InternLM2-1.8B at full width trained through the sharded
+    trainer on one NCCL rank and through the unsharded one, bit for bit;
+    the checkpoints restored across the two; the EF all-reduce and the
+    pipeline on card tensors."""
+    import datetime
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline, PipelineConfig
+    from repro_torch.distributed.grad_compress import (_dequant, _quant,
+                                                       ef_allreduce)
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.distributed.sharding import param_sharding
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import Model, RunConfig
+    from repro_torch.models.common import logical_tree, spec_shapes
+    from repro_torch.optim import OptConfig, init_opt
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.trainer import shard_state
+    t0 = phase(f"D1. {D_ARCH} trained at full width through the sharded "
+               f"trainer on one NCCL rank and unsharded: {D1_BATCH} x "
+               f"{D1_SEQ} tokens, {D1_STEPS} steps each; checkpoints "
+               "restored across; EF all-reduce and GPipe on the card")
+    free_earlier_phases(torch)
+    root = os.path.join(HERE, "build", "d1")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    model = Model(get_config(D_ARCH), RunConfig())
+    cfg = model.cfg
+    ckpt_gb = model.n_params() * 4 * 3 / 1e9     # f32 params, m and v
+    free_gb = shutil.disk_usage(root).free / 1e9
+    if free_gb < 2.5 * ckpt_gb:
+        fail(f"D1: {free_gb:.1f} GB free under build/, the two "
+             f"checkpoints need {2 * ckpt_gb:.1f}")
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(root, 'rdzv')}",
+            world_size=1, rank=0, device_id=dev,
+            timeout=datetime.timedelta(seconds=120))
+    except RuntimeError as e:       # DistBackendError among them
+        fail(f"D1: NCCL did not initialise ({type(e).__name__}: {e})")
+    opt = OptConfig(lr=1e-4, warmup_steps=1, total_steps=D1_STEPS)
+    pc = PipelineConfig(batch=D1_BATCH, seq=D1_SEQ, seed=11)
+    runs, restores, marks = {}, {}, [("start", time.time())]
+    torch.use_deterministic_algorithms(True)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"D1: the process group runs {dist.get_backend()}")
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        specs = model.specs()
+        psh = param_sharding(logical_tree(specs), spec_shapes(specs), mesh,
+                             "default")
+        marks.append(("NCCL and the mesh", time.time()))
+        first = {"params": model.init_on_device(0, dev)}
+        marks.append(("the draw", time.time()))
+
+        class D1Trainer(Trainer):
+            def init_state(self, seed=0):
+                """The one draw, for both runs: sharded, its shards;
+                unsharded (the second run), the drawn tree itself."""
+                if self.param_shardings is not None:
+                    return (*shard_state(self.opt_cfg, first["params"],
+                                         self.param_shardings,
+                                         self.opt_shardings), 0)
+                p = first.pop("params")
+                return p, init_opt(self.opt_cfg, p), 0
+
+        def trainer(name, sharded):
+            pipe = DataPipeline(cfg, pc, device=dev)
+            tr = D1Trainer(model, opt, TrainerConfig(
+                total_steps=D1_STEPS, ckpt_every=D1_STEPS,
+                ckpt_dir=os.path.join(root, name), keep=1, log_every=1),
+                pipe, param_shardings=psh if sharded else None, device=dev)
+            tr.ckpt = _TimedCheckpointer(tr.ckpt)
+            return tr, pipe
+
+        finals = {}
+        for name, sharded in (("sharded", True), ("unsharded", False)):
+            torch.cuda.reset_peak_memory_stats()
+            tr, pipe = trainer(name, sharded)
+            t1 = time.time()
+            out = tr.run()
+            pipe.close()
+            runs[name] = dict(wall_s=time.time() - t1,
+                              saves_s=tr.ckpt.saves, metrics=out["metrics"],
+                              peak_memory_gb=torch.cuda.max_memory_allocated()
+                              / 1e9)
+            finals[name] = {"params": out["params"], "opt": out["opt"]}
+            del out, tr
+            if sharded:     # its checkpoint holds it: free the card
+                finals.pop(name)
+                torch.cuda.empty_cache()
+            marks.append((f"the {name} run", time.time()))
+        want = finals.pop("unsharded")
+        # each run's checkpoint restored into the other kind of trainer
+        for src, sharded in (("sharded", False), ("unsharded", True)):
+            tr, pipe = trainer(src, sharded)
+            pipe.close()
+            t1 = time.time()
+            p, o, step = tr.try_restore()
+            torch.cuda.synchronize()
+            restores[src] = dict(seconds=time.time() - t1, step=step,
+                                 into="sharded" if sharded else "unsharded")
+            bad = _leaves_equal({"params": p, "opt": o}, want)
+            if bad or step != D1_STEPS:
+                fail(f"D1: the {src} run's checkpoint restored into the "
+                     f"{restores[src]['into']} trainer differs from the "
+                     f"unsharded run's state at {bad[:5]} (step {step})")
+            del p, o, tr
+            marks.append((f"the {src} restore and comparison", time.time()))
+        del want
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(os.path.join(root,
+                                                              "sharded"))
+                         for f in fs)
+
+        # the EF all-reduce and the pipeline on card tensors
+        dmesh = make_test_mesh((1,), ("data",))
+        g = torch.randn(D1_EF_N, device=dev, generator=torch.Generator(
+            dev).manual_seed(5))
+        r = torch.randn(D1_EF_N, device=dev, generator=torch.Generator(
+            dev).manual_seed(6)) * 1e-3
+        mean, new_r = ef_allreduce({"g": g[None]}, {"g": r[None]}, dmesh,
+                                   "data")
+        x = g + r
+        q, sc = _quant(x)
+        deq = _dequant(q, sc, x.shape)
+        if not (_bits_equal(mean["g"][0], deq)
+                and _bits_equal(new_r["g"][0], x - deq)):
+            fail("D1: ef_allreduce at one rank differs from the plain "
+                 "quantise-dequantise or its residual")
+        pmesh = make_test_mesh((1,), ("pod",))
+        n_micro, bm, d = D1_PIPE
+        w = torch.randn((1, d, d), device=dev, generator=torch.Generator(
+            dev).manual_seed(7)) / d ** 0.5
+        xs = torch.randn((n_micro, bm, d), device=dev,
+                         generator=torch.Generator(dev).manual_seed(8))
+        got = pipeline_forward(pmesh, "pod",
+                               lambda w_s, xb: torch.tanh(xb @ w_s), w, xs)
+        if not _bits_equal(got, torch.stack([torch.tanh(xs[i] @ w[0])
+                                            for i in range(n_micro)])):
+            fail("D1: pipeline_forward at one stage differs from the block "
+                 "applied in order")
+        marks.append(("EF all-reduce and GPipe", time.time()))
+    except (RuntimeError, ValueError) as e:
+        fail(f"D1: {type(e).__name__}: {e}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    marks.append(("teardown", time.time()))
+    timeline = {name: t - marks[i][1]
+                for i, (name, t) in enumerate(marks[1:])}
+    ms = {name: [(m["loss"], m["grad_norm"]) for m in r["metrics"]]
+          for name, r in runs.items()}
+    if ms["sharded"] != ms["unsharded"] or len(ms["sharded"]) != D1_STEPS:
+        fail(f"D1: the sharded run's losses and grad norms {ms['sharded']} "
+             f"differ from the unsharded run's {ms['unsharded']}")
+    if not all(np.isfinite([v for m in ms["sharded"] for v in m])):
+        fail("D1: a loss or grad norm is not finite")
+    step_s = {name: statistics.median([m["time"] for m in r["metrics"]][1:])
+              for name, r in runs.items()}
+    out = dict(runs=runs, restores=restores, step_median_s=step_s,
+               checkpoint_gb=ckpt_bytes / 1e9,
+               tokens_per_s={k: D1_BATCH * D1_SEQ / v
+                             for k, v in step_s.items()},
+               timeline_s=timeline, wall_s=time.time() - t0)
+    print(f"losses {[round(m[0], 5) for m in ms['sharded']]}, grad norms "
+          f"{[round(m[1], 4) for m in ms['sharded']]}: sharded = unsharded "
+          "bit for bit, every parameter and AdamW leaf too")
+    for name, r in runs.items():
+        print(f"{name}: step median {step_s[name]:.3f} s (steps 1-"
+              f"{D1_STEPS - 1}; step 0 {r['metrics'][0]['time']:.3f} s), "
+              f"{out['tokens_per_s'][name]:,.0f} tokens/s; run wall "
+              f"{r['wall_s']:.1f} s; checkpoint save {r['saves_s'][-1]:.2f} "
+              f"s; peak device memory {r['peak_memory_gb']:.2f} GB")
+    for src, r in restores.items():
+        print(f"the {src} run's checkpoint ({out['checkpoint_gb']:.2f} GB) "
+              f"restored into the {r['into']} trainer in "
+              f"{r['seconds']:.2f} s, every leaf equal")
+    print(f"ef_allreduce of {D1_EF_N:,} f32 and pipeline_forward "
+          f"{D1_PIPE} at one NCCL rank: bit for bit")
+    print("timeline: " + ", ".join(f"{k} {v:.1f} s"
+                                   for k, v in timeline.items()))
+    print(f"({out['wall_s']:.1f} s in all)")
+    torch.cuda.empty_cache()
+    return out
 
 
 def v1_phase(torch, np, dev, flush):

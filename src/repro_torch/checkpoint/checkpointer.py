@@ -23,6 +23,22 @@ the JAX package pickles its treedef; bf16 leaves are written as their
 bytes (``uint8``), as the JAX package writes its ``ml_dtypes`` leaves.
 ``restore`` rebuilds the tree of ``target`` (or nested dicts of the
 paths) on a given device.
+
+Sharded trees (DTensor leaves, :mod:`..distributed.sharding`) need a
+``Checkpointer`` made with the process ``group`` that holds them:
+
+* **save** gathers each DTensor whole (``full_tensor``) on the caller's
+  thread, on every rank, and only then does the group's rank 0 hand its
+  host copy to the writer thread (a collective on the writer thread could
+  deadlock against the next step's collectives); the other ranks write
+  nothing.  ``wait`` joins the write and then waits at a barrier, so no
+  rank reads ``latest_step`` before rank 0's rename.
+* **restore** takes ``shardings=`` (a tree of ``Sharding`` over the
+  target's structure): each rank reads only its slice of a sharded leaf
+  (``np.load(..., mmap_mode="r")``) and gets a DTensor.  The manifest is
+  the same whatever the world size, so a checkpoint written on any number
+  of ranks restores onto any other, or onto one process without a mesh
+  (elastic restore, the JAX ``device_put`` onto the new shardings).
 """
 from __future__ import annotations
 
@@ -37,6 +53,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..distributed.sharding import (from_local, gather, is_dtensor,
+                                    local_slices)
 
 PyTree = Any
 
@@ -69,11 +87,13 @@ def leaf_paths(tree: PyTree, prefix: str = "") -> List[Tuple[str, Any]]:
     return out
 
 
-def _rebuild(target: PyTree, leaves: Dict[str, Any], prefix: str = ""):
+def rebuild(target: PyTree, leaves: Dict[str, Any], prefix: str = ""):
+    """``target``'s structure with each leaf the value of its path in
+    ``leaves`` (``None`` leaves stay ``None``)."""
     kids = _children(target)
     if kids is None:
         return None if target is None else leaves[prefix]
-    vals = [_rebuild(v, leaves, f"{prefix}/{k}" if prefix else k)
+    vals = [rebuild(v, leaves, f"{prefix}/{k}" if prefix else k)
             for k, v in kids]
     if isinstance(target, dict):
         return dict(zip(target.keys(), vals))
@@ -104,14 +124,44 @@ def _to_host(x) -> Tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
+def _load_leaf(path: str, meta: dict, sharding=None) -> torch.Tensor:
+    """One saved leaf as a host tensor of its dtype: whole, or the slice
+    ``sharding`` gives this rank (read through a memory map)."""
+    arr = np.load(path, mmap_mode=None if sharding is None else "r")
+    if meta["dtype"] == "bfloat16":     # saved as its bytes
+        arr = arr.view(np.int16).reshape(meta["shape"])
+    if sharding is not None:      # a copy: never a view of the map
+        arr = np.array(arr[local_slices(meta["shape"], sharding)],
+                       order="C")
+    t = torch.from_numpy(arr)
+    return t.view(torch.bfloat16) if meta["dtype"] == "bfloat16" else t
+
+
 class Checkpointer:
-    def __init__(self, root: str, keep: int = 3):
+    """``group``: the process group of sharded trees (the module's
+    docstring); None for a process's own."""
+
+    def __init__(self, root: str, keep: int = 3, group=None):
         self.root = root
         self.keep = keep
+        self.group = group
         os.makedirs(root, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
-        self._gc_tmp()
+        if self._writes():
+            self._gc_tmp()
+
+    def _writes(self) -> bool:
+        """Whether this process writes the files: rank 0 of ``group``."""
+        if self.group is None:
+            return True
+        import torch.distributed as dist
+        return dist.get_rank(self.group) == 0
+
+    def _barrier(self) -> None:
+        if self.group is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self.group)
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: PyTree,
@@ -119,7 +169,20 @@ class Checkpointer:
              blocking: bool = False) -> None:
         self.wait()
         paths = leaf_paths(tree)
-        host = [_to_host(x) for _, x in paths]
+        if self.group is None and any(is_dtensor(x) for _, x in paths):
+            raise ValueError("a tree of DTensors needs the Checkpointer's "
+                             "group=")
+        writes = self._writes()
+        host = []
+        for _, x in paths:
+            full = gather(x)           # a collective: every rank, in order
+            if writes:
+                host.append(_to_host(full))
+            del full
+        if not writes:
+            if blocking:
+                self._barrier()
+            return
         manifest = {
             "step": step,
             "leaves": [{"path": p, "shape": list(x.shape), "dtype": dt}
@@ -144,6 +207,7 @@ class Checkpointer:
 
         if blocking:
             work()
+            self._barrier()
             return
 
         def guarded():
@@ -156,10 +220,12 @@ class Checkpointer:
         self._thread.start()
 
     def wait(self) -> None:
-        """Join the background save; raise what it raised."""
+        """Join the background save and, with a ``group``, wait for every
+        rank at a barrier; raise what the save raised."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -171,28 +237,32 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore(self, step: Optional[int] = None,
-                target: Optional[PyTree] = None, device="cuda"
+                target: Optional[PyTree] = None, device="cuda",
+                shardings: Optional[PyTree] = None
                 ) -> Tuple[PyTree, Dict[str, Any]]:
         """Load a checkpoint → (tree, extras), every leaf a tensor on
         ``device`` (the card unless ``"cpu"`` is asked for; raises without
         a card).  ``target``: a tree of the saved structure (any
         leaves, e.g. meta tensors) to rebuild; without it, nested dicts of
-        the saved paths."""
+        the saved paths.  ``shardings``: a tree of ``Sharding`` (or
+        ``None`` leaves) over the same structure; a leaf with one becomes
+        a DTensor of which this rank reads only its slice."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
         dev = resolve_device(device)
+        placed = dict(leaf_paths(shardings)) if shardings is not None else {}
         d = os.path.join(self.root, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         leaves = {}
         for i, meta in enumerate(manifest["leaves"]):
-            arr = np.load(os.path.join(d, f"leaf_{i:05d}.npy"))
-            t = torch.from_numpy(arr)
-            if meta["dtype"] == "bfloat16":
-                t = t.view(torch.bfloat16).reshape(meta["shape"])
-            leaves[meta["path"]] = t.to(dev)
-        tree = (_rebuild(target, leaves) if target is not None
+            sh = placed.get(meta["path"])
+            t = _load_leaf(os.path.join(d, f"leaf_{i:05d}.npy"), meta,
+                           sh).to(dev)
+            leaves[meta["path"]] = (t if sh is None
+                                    else from_local(t, sh, meta["shape"]))
+        tree = (rebuild(target, leaves) if target is not None
                 else _nested(leaves))
         return tree, manifest["extras"]
 

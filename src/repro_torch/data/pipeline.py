@@ -6,18 +6,22 @@ copied, so both packages draw the same batches element for element, and
 the whole pipeline state in a checkpoint is one integer.  A background
 thread keeps ``prefetch`` numpy batches ahead; :meth:`DataPipeline.__next__`
 copies the next one to the pipeline's device (the JAX ``device_put``).
+With ``shardings`` (a ``Sharding`` per batch key) each rank draws the
+whole global batch, as every process draws the same ``(step, seed)``
+batch, and keeps only its slice, as a DTensor: no communication.
 """
 from __future__ import annotations
 
 import dataclasses
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..distributed.sharding import from_local, local_slices
 from ..models.config import ModelConfig
 
 
@@ -52,12 +56,13 @@ def _batch_at(cfg: ModelConfig, pc: PipelineConfig, step: int
 class DataPipeline:
     """Iterator over batches on ``device`` (the card unless ``"cpu"`` is
     asked for) with background prefetch; :meth:`close` stops the
-    thread."""
+    thread.  ``shardings``: ``{key: Sharding}`` (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, pc: PipelineConfig, device="cuda",
-                 start_step: int = 0):
+                 start_step: int = 0, shardings: Optional[dict] = None):
         self.cfg, self.pc = cfg, pc
         self.device = resolve_device(device)
+        self.shardings = shardings
         self.step = start_step
         self._thread = None
         self._start(start_step)
@@ -93,8 +98,12 @@ class DataPipeline:
                 break
             # stale batch from before a restore(); drop it
         self.step += 1
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in batch.items()}
+        if self.shardings is None:
+            return {k: torch.from_numpy(v).to(self.device)
+                    for k, v in batch.items()}
+        return {k: from_local(torch.from_numpy(np.ascontiguousarray(
+            v[local_slices(v.shape, self.shardings[k])])).to(self.device),
+            self.shardings[k], v.shape) for k, v in batch.items()}
 
     # --- checkpointable state -------------------------------------------
     def state(self) -> Dict[str, int]:

@@ -5,6 +5,6 @@ JAX package's ``models`` (dense, MoE, hybrid, xLSTM, encoder, VLM)."""
 from .common import Spec, count_params, init_params_numpy
 from .config import MambaConfig, ModelConfig, RunConfig
 from .convert import init_params_on_device, params_from_numpy
-from .model import (Model, block_period, cross_entropy, decode_state_shapes,
-                    init_decode_state, model_specs, n_superblocks,
-                    padded_vocab)
+from .model import (Model, block_period, cross_entropy, decode_state_logical,
+                    decode_state_shapes, init_decode_state, model_specs,
+                    n_superblocks, padded_vocab)

@@ -131,6 +131,21 @@ def init_params_numpy(specs: PyTree, seed: int = 0,
     return tree
 
 
+def logical_tree(specs: PyTree) -> PyTree:
+    """The spec tree's logical axes: a tree of tuples of axis names."""
+    return _walk(specs, lambda _, s: s.logical)
+
+
+def spec_shapes(specs: PyTree, dtype: str = "float32") -> PyTree:
+    """The spec tree as meta tensors of each leaf's shape and dtype (the
+    leaf's own dtype, else ``dtype``): the structure with no storage, the
+    JAX ``ShapeDtypeStruct`` tree."""
+    import torch
+    from .model import torch_dtype
+    return _walk(specs, lambda _, s: torch.empty(
+        s.shape, dtype=torch_dtype(s.dtype or dtype), device="meta"))
+
+
 def count_params(specs: PyTree) -> int:
     total = 0
 

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import Sharding, is_dtensor, local_slices
 from ..kernels.flash_attention.ops import flash_attention_gqa
 from .common import Spec
 from .config import ModelConfig, RunConfig
@@ -160,7 +161,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Single-step decode attention (grouped GQA, cache never repeated).
 
     q: [B, 1, Hq, D]; caches: [B, S, Hkv, D]; kv_len: [B] valid lengths.
+    The caches may be DTensors split along the sequence (the
+    ``decode_long`` rules' ``kv_seq``): :func:`_decode_attention_seq_split`.
     """
+    if is_dtensor(k_cache):
+        return _decode_attention_seq_split(q, k_cache, v_cache, kv_len,
+                                           scale)
     B, _, Hq, D = q.shape
     _, S, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -174,6 +180,52 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     o = torch.einsum("bcgs,bscd->bcgd", p.to(v_cache.dtype).float(),
                      v_cache.float())
     return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def _decode_attention_seq_split(q, k_cache, v_cache, kv_len, scale):
+    """:func:`decode_attention` over caches split along the sequence
+    (dimension 1) over mesh dimensions, the same on every rank: each rank
+    takes the softmax's partial (max, sum, unnormalised output) over its
+    positions, and the partials combine over each splitting mesh
+    dimension in turn (flash-decoding's split-K, which is what the JAX
+    partitioner makes of the sharded cache)."""
+    import torch.distributed as dist
+    pls = k_cache.placements
+    if v_cache.placements != pls or any(
+            pl.is_shard() and pl.dim != 1 for pl in pls):
+        raise ValueError("decode_attention: the caches must be split along "
+                         "the sequence alone, alike")
+    mesh = k_cache.device_mesh
+    off = local_slices(k_cache.shape, Sharding(mesh, pls))[1].start
+    k, v = k_cache.to_local(), v_cache.to_local()
+    B, _, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, G, D)
+    s = torch.einsum("bcgd,bscd->bcgs", qg.float(), k.float()) * scale
+    pos = off + torch.arange(S, device=q.device)
+    mask = (pos[None, :] < kv_len.to(q.device)[:, None])[:, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bcgs,bscd->bcgd", p, v.float())
+    for dim, pl in enumerate(pls):
+        if not pl.is_shard():
+            continue
+        group = mesh.get_group(dim)
+        n = dist.get_world_size(group)
+        ms, ls, os_ = ([torch.empty_like(t) for _ in range(n)]
+                       for t in (m, l, o))
+        dist.all_gather(ms, m, group=group)
+        dist.all_gather(ls, l, group=group)
+        dist.all_gather(os_, o, group=group)
+        m = torch.stack(ms).amax(0)
+        w = [torch.exp(mi - m) for mi in ms]
+        l = sum(wi * li for wi, li in zip(w, ls))
+        o = sum(wi * oi for wi, oi in zip(w, os_))
+    return (o / l).reshape(B, 1, Hq, D).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,8 @@ from . import mamba as M
 from . import moe as MoE
 from . import xlstm as X
 from .._device import resolve_device
+from ..distributed.sharding import (batch_axes, is_device_mesh, sum_over,
+                                    with_logical_constraint)
 from .common import Spec, count_params, init_params_numpy, tree_map
 from .config import ModelConfig, RunConfig
 from ..kernels.paged_attention.ops import (classes_of, paged_attention,
@@ -215,6 +217,31 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     return state
 
 
+def decode_state_logical(cfg: ModelConfig) -> dict:
+    """Logical axes of the decode state (:func:`decode_state_shapes`'
+    tree), for its shardings."""
+    out: dict = {}
+    for j in range(block_period(cfg)):
+        mk = _mixer_kind(cfg, j)
+        if mk == "attn":
+            kv = ("layers", "batch", "kv_seq", "kv_heads", "kv_head_dim")
+            out[f"pos{j}"] = {"k": kv, "v": kv}
+        elif mk == "mamba":
+            out[f"pos{j}"] = {
+                "conv": ("layers", "batch", None, "kv_head_dim"),
+                "ssm": ("layers", "batch", "kv_head_dim", None)}
+        elif mk == "mlstm":
+            out[f"pos{j}"] = {
+                "conv": ("layers", "batch", None, None),
+                "C": ("layers", "batch", None, None, None),
+                "n": ("layers", "batch", None, None),
+                "m": ("layers", "batch", None)}
+        elif mk == "slstm":
+            out[f"pos{j}"] = {k: ("layers", "batch", None)
+                              for k in ("c", "n", "m", "h")}
+    return out
+
+
 def _write_state(dst: dict, i: int, new: dict) -> None:
     """Superblock i's slice of the stacked state ``dst`` := ``new``."""
     for key, val in new.items():
@@ -231,8 +258,21 @@ def _slice_state(st: dict, i: int) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class Model:
+    """``mesh`` (a ``DeviceMesh``) and ``act_rules`` make the model one
+    data-parallel rank's: the batch it is given is this rank's rows of a
+    global batch split over the mesh axes of ``ACT_RULES[act_rules]``'s
+    "batch" rule, and the statistics of the global batch — the loss's
+    token sum and mask count, the MoE balance loss's means — are summed
+    over those ranks (where a gradient flows through the sum, its backward
+    sums the gradient over the same ranks: each rank's gradient is then
+    the number of data ranks times its share, and their mean the global
+    batch's, :func:`..train.train_step.make_train_step`).  Activations go
+    through ``with_logical_constraint``, the identity on the plain tensors
+    the port computes on."""
     cfg: ModelConfig
     rc: RunConfig
+    mesh: Optional[Any] = None
+    act_rules: str = "default"
 
     # ---- params ----
     def specs(self) -> dict:
@@ -269,6 +309,18 @@ class Model:
                     else v) for k, v in params.items()}
 
     # ---- helpers ----
+    def _constrain(self, x, logical):
+        return with_logical_constraint(x, logical, self.mesh, self.act_rules)
+
+    def _batch_sum(self, x: torch.Tensor, autograd: bool = False
+                   ) -> torch.Tensor:
+        """``x`` summed over the data ranks (:class:`Model`); unchanged
+        without a ``DeviceMesh``."""
+        if not is_device_mesh(self.mesh):
+            return x
+        return sum_over(x, self.mesh, batch_axes(self.mesh, self.act_rules),
+                        autograd=autograd)
+
     def _cast(self, a: torch.Tensor) -> torch.Tensor:
         return a.to(self.cdt) if a.is_floating_point() else a
 
@@ -288,8 +340,10 @@ class Model:
         compute dtype (the encoder's frames; tokens are not read), else
         :meth:`_embed` of ``tokens`` and ``patch_embeds``."""
         if input_embeds is not None:
-            return input_embeds.to(self.cdt)
-        return self._embed(params, tokens, patch_embeds)
+            x = input_embeds.to(self.cdt)
+        else:
+            x = self._embed(params, tokens, patch_embeds)
+        return self._constrain(x, ("batch", "seq", "embed"))
 
     def _logits(self, params, x):
         head = params.get("lm_head")
@@ -339,7 +393,8 @@ class Model:
             return x, None
         h = L.rms_norm(x, p["ln2"], self.cfg.rms_eps)
         if fk == "moe":
-            f, aux = MoE.moe_ffn(self.cfg, self.rc, p["moe"], h)
+            f, aux = MoE.moe_ffn(self.cfg, self.rc, p["moe"], h,
+                                 mesh=self.mesh, act_rules=self.act_rules)
             return x + f, aux
         return x + L.mlp(p["mlp"], h), None
 
@@ -380,7 +435,7 @@ class Model:
                 x, a = self._ffn(j, p, x + mix)
                 if a is not None:
                     aux = aux + a
-            return x, aux
+            return self._constrain(x, ("batch", "seq", "embed")), aux
 
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(n_superblocks(cfg)):
@@ -446,7 +501,8 @@ class Model:
         at a time, each chunk recomputed in backward, so ``[B, S, V]``
         logits never exist at once; padded vocabulary classes get a
         ``-1e9`` bias; the sum of ``mask``-weighted token losses (``mask``
-        defaults to ones) is divided by ``max(mask.sum(), 1)``."""
+        defaults to ones) is divided by ``max(mask.sum(), 1)``, both summed
+        over the data ranks on a mesh (:class:`Model`)."""
         cfg = self.cfg
         x, aux = self.backbone(params, tokens, patch_embeds=patch_embeds,
                                input_embeds=input_embeds, train=True)
@@ -479,7 +535,8 @@ class Model:
                                            use_reentrant=False)
             else:
                 total = total + chunk_nll(*part)
-        return total / torch.clamp_min(mask.sum(), 1.0), aux
+        total = self._batch_sum(total, autograd=True)
+        return total / torch.clamp_min(self._batch_sum(mask.sum()), 1.0), aux
 
     @torch.no_grad()
     def prefill(self, params, tokens: Optional[torch.Tensor], *,

@@ -1,8 +1,10 @@
 """Mixture-of-Experts FFN with sort-based top-k dispatch.
 
 The port of the JAX package's ``models/moe.py`` (``moe_specs``,
-``_dispatch_indices``, ``moe_ffn``; its ``mesh`` / ``act_rules``
-sharding hints have no meaning in one process and are left out).  The
+``_dispatch_indices``, ``moe_ffn``).  On a ``DeviceMesh`` the balance
+loss's means run over the global batch: each data rank's router means
+and expert counts are summed over the data ranks (the means by a sum
+whose backward sums the gradient over the same ranks), as the JAX means run over the global arrays.  The
 dispatch is the MegaBlocks/GShard-style capacity-bounded gather, per group
 (a group is one sequence of the batch):
 
@@ -36,6 +38,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (axes_index, batch_axes, is_device_mesh,
+                                    sum_over, with_logical_constraint)
 from .common import Spec
 from .config import ModelConfig, RunConfig
 
@@ -115,33 +119,55 @@ def router_probs(p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.softmax((x @ p["router"]).float(), dim=-1)
 
 
-def moe_ffn(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor
+def moe_ffn(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor,
+            mesh=None, act_rules: str = "default"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] → (y [B, S, d] in x's dtype, aux: the f32 scalar
     load-balance loss, Switch's ``E * sum_e f_e p_e``)."""
     probs = router_probs(p, x)
-    return moe_experts(cfg, rc, p, x, probs, *route(probs, cfg.top_k))
+    return moe_experts(cfg, rc, p, x, probs, *route(probs, cfg.top_k),
+                       mesh=mesh, act_rules=act_rules)
 
 
 def moe_experts(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor,
                 probs: torch.Tensor, gate_vals: torch.Tensor,
-                expert_ids: torch.Tensor
+                expert_ids: torch.Tensor, mesh=None,
+                act_rules: str = "default"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`moe_ffn` after routing: x [B, S, d] through the experts
     ``expert_ids`` [B, S, k] picked from ``probs`` [B, S, E] with gates
     ``gate_vals`` [B, S, k] (:func:`route`), dispatched per group within
-    the call's capacity, plus the shared experts → (y, aux)."""
+    the call's capacity, plus the shared experts → (y, aux).  On a
+    ``DeviceMesh`` x is this data rank's rows and aux is the global
+    batch's (the module's docstring)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
     dev = x.device
+    w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
+    if rc.moe_weight_gather and 3 * E * d * cfg.d_ff * 2 < 2e9:
+        # inference: small expert stacks replicated over the data axes at
+        # use (the identity on plain tensors)
+        w_gate = with_logical_constraint(w_gate, (None, None, "mlp"),
+                                         mesh, act_rules)
+        w_up = with_logical_constraint(w_up, (None, None, "mlp"),
+                                       mesh, act_rules)
+        w_down = with_logical_constraint(w_down, (None, "mlp", None),
+                                         mesh, act_rules)
 
     # load-balance aux loss (Switch): E * sum_e f_e * p_e
     me = probs.mean(dim=(0, 1))
     ce = torch.zeros((B, E), dtype=torch.float32, device=dev)
     ce.scatter_add_(1, expert_ids.reshape(B, -1),
                     torch.ones((B, S * k), dtype=torch.float32, device=dev))
-    aux = E * torch.sum(me * (ce.sum(0) / (T * k)))
+    counts = ce.sum(0)
+    axes = batch_axes(mesh, act_rules) if is_device_mesh(mesh) else ()
+    if axes:
+        n = axes_index(mesh, axes)[1]
+        me = sum_over(me, mesh, axes, autograd=True) / n
+        counts = sum_over(counts, mesh, axes)
+        T = T * n
+    aux = E * torch.sum(me * (counts / (T * k)))
 
     A = S * k                                         # assignments/group
     C = capacity_of(cfg, rc, S)
@@ -156,8 +182,8 @@ def moe_experts(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor,
     eb = buf[:, :E * C].reshape(B, E, C, d).transpose(0, 1).reshape(
         E, B * C, d)                                  # [E, B*C, d]
 
-    h = F.silu(torch.bmm(eb, p["w_gate"])) * torch.bmm(eb, p["w_up"])
-    out = torch.bmm(h, p["w_down"])                   # [E, B*C, d]
+    h = F.silu(torch.bmm(eb, w_gate)) * torch.bmm(eb, w_up)
+    out = torch.bmm(h, w_down)                        # [E, B*C, d]
     flat_out = out.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
 
     # combine: each token's kept outputs times their gates, added in k order

@@ -5,9 +5,19 @@ there: ``init_opt(cfg, params) -> state`` and ``apply_opt(cfg, grads,
 state, params, step) -> (new_params, new_state, grad_norm)`` over nested
 dicts of tensors, each leaf's update in f32 (f32 scalars where the JAX
 code's weak types give f32).  The 8-bit variant stores m as int8 with one
-f32 scale per block of 256 along the last axis and v in bfloat16.  The
-dry-run mirrors (``abstract_opt``, ``opt_logical``) wait for the port's
-sharding slice (ROADMAP A12).
+f32 scale per block of 256 along the last axis and v in bfloat16.
+``abstract_opt`` (meta tensors) and ``opt_logical`` mirror ``init_opt``
+leaf for leaf, for the state's shardings.
+
+Sharded leaves (DTensors, :mod:`..distributed.sharding`) update to the
+bits of the unsharded update: the global norm sums each leaf's local
+squares over the mesh dimensions that shard it, so a replicated leaf
+counts once; a leaf whose update is elementwise on its shard (AdamW;
+AdamW8bit where no placement splits the last axis, whose 256-wide blocks
+would straddle shards) updates its local tensors; any other (AdamW8bit
+split on the last axis, Adafactor's row and column means and update RMS
+over a sharded leaf) is gathered whole, updated, and sliced back — one
+leaf's state at a time on the device.
 """
 from __future__ import annotations
 
@@ -18,6 +28,9 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..checkpoint.checkpointer import leaf_paths, rebuild
+from ..distributed.sharding import (Sharding, gather, is_dtensor, local,
+                                    shard_local, sharded_sq_sum)
 from ..models.common import tree_map as _map
 
 PyTree = Any
@@ -68,16 +81,27 @@ def global_norm(tree: PyTree) -> torch.Tensor:
     the JAX leaf order."""
     total = None
     for x in sorted_leaves(tree):
-        sq = x.float().square().sum()
+        sq = sharded_sq_sum(x)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: PyTree, max_norm: float
                         ) -> Tuple[PyTree, torch.Tensor]:
+    """Grads scaled to a global norm of at most ``max_norm``, and the norm
+    before (a DTensor's local tensor scaled, placements kept)."""
     norm = global_norm(grads)
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-12), 1.0)
-    return _map(lambda g: g * scale.to(g.dtype), grads), norm
+
+    def one(g):
+        if is_dtensor(g):
+            from torch.distributed.tensor import DTensor
+            return DTensor.from_local(g.to_local() * scale.to(g.dtype),
+                                      g.device_mesh, g.placements,
+                                      run_check=False, shape=g.shape,
+                                      stride=g.stride())
+        return g * scale.to(g.dtype)
+    return _map(one, grads), norm
 
 
 # ---------------------------------------------------------------------------
@@ -239,13 +263,106 @@ def init_opt(cfg: OptConfig, params: PyTree):
     raise ValueError(cfg.kind)
 
 
+def abstract_opt(cfg: OptConfig, abstract_params: PyTree):
+    """``init_opt``'s tree as meta tensors (no storage), from a tree of
+    meta tensors (:func:`..models.common.spec_shapes`)."""
+    if cfg.kind not in ("adamw", "adamw8bit", "adafactor"):
+        raise ValueError(cfg.kind)
+    return init_opt(cfg, _map(lambda p: torch.empty(
+        p.shape, dtype=p.dtype, device="meta"), abstract_params))
+
+
+def opt_logical(cfg: OptConfig, param_logical: PyTree):
+    """Logical axes for the opt state (mirrors :func:`abstract_opt`).
+
+    Moment tensors inherit the param's logical axes (same rank); factored /
+    scale tensors inherit sliced axes; non-divisible dims fall back to
+    replication inside ``logical_to_pspec``'s divisibility check.
+    """
+    if cfg.kind == "adamw":
+        m = _map(lambda lg: lg, param_logical)
+        return AdamState(m, m, None)
+    if cfg.kind == "adamw8bit":
+        m = _map(lambda lg: lg, param_logical)
+        return AdamState(m, m, m)
+    if cfg.kind == "adafactor":
+        rows = _map(lambda lg: lg[:-1] or (None,), param_logical)
+        cols = _map(lambda lg: (lg[:-2] + lg[-1:]) if len(lg) >= 2
+                    else (None,), param_logical)
+        full = _map(lambda lg: (None,) if len(lg) >= 2 else lg,
+                    param_logical)
+        return FactorState(rows, cols, full)
+    raise ValueError(cfg.kind)
+
+
+def _update_one(cfg: OptConfig, p, g, comps, step: int):
+    """One leaf's update on plain tensors → (new p, new state components
+    in ``comps``' order)."""
+    if cfg.kind in ("adamw", "adamw8bit"):
+        m, v, ms = (comps + [None])[:3]
+        new_p, st = adam_update(cfg, {"x": g}, AdamState(
+            {"x": m}, {"x": v}, None if ms is None else {"x": ms}),
+            {"x": p}, step)
+        out = [st.m["x"], st.v["x"]] + (
+            [] if ms is None else [st.m_scale["x"]])
+        return new_p["x"], out
+    vr, vc, v = comps
+    new_p, st = adafactor_update(cfg, {"x": g}, FactorState(
+        {"x": vr}, {"x": vc}, {"x": v}), {"x": p}, step)
+    return new_p["x"], [st.vr["x"], st.vc["x"], st.v["x"]]
+
+
+def _elementwise_on_shards(cfg: OptConfig, p, comps) -> bool:
+    """Whether ``p``'s update on its shard and its state's shards is the
+    unsharded update's: every tensor placed alike, and none of the
+    update's reductions crossing a shard."""
+    if any(c.placements != p.placements for c in comps):
+        return False
+    shards = [pl.dim for pl in p.placements if pl.is_shard()]
+    if cfg.kind == "adamw":
+        return True
+    if cfg.kind == "adamw8bit":
+        return p.dim() - 1 not in shards
+    return not shards
+
+
+def _apply_sharded(cfg: OptConfig, grads: PyTree, state, params: PyTree,
+                   step: int):
+    """:func:`apply_opt` over DTensor leaves (the module's docstring)."""
+    fields = [f for f in state._fields if getattr(state, f) is not None]
+    comp = {f: dict(leaf_paths(getattr(state, f))) for f in fields}
+    new_p, new_s = {}, {}
+    for (path, p), (_, g) in zip(leaf_paths(params), leaf_paths(grads)):
+        cs = [comp[f][path] for f in fields]
+        if _elementwise_on_shards(cfg, p, cs):
+            np_, ncs = _update_one(cfg, local(p), local(g),
+                                   [local(c) for c in cs], step)
+            from torch.distributed.tensor import DTensor
+            wrap = [DTensor.from_local(x, a.device_mesh, a.placements,
+                                       run_check=False, shape=a.shape,
+                                       stride=a.stride())
+                    for x, a in zip([np_] + ncs, [p] + cs)]
+        else:
+            np_, ncs = _update_one(cfg, gather(p), gather(g),
+                                   [gather(c) for c in cs], step)
+            wrap = [shard_local(x, Sharding(a.device_mesh, a.placements))
+                    for x, a in zip([np_] + ncs, [p] + cs)]
+        new_p[path] = wrap[0]
+        for f, x in zip(fields, wrap[1:]):
+            new_s[f"{f}/{path}"] = x
+    return rebuild(params, new_p), rebuild(state, new_s)
+
+
 @torch.no_grad()
 def apply_opt(cfg: OptConfig, grads: PyTree, state, params: PyTree,
               step: int):
     """Clip ``grads`` to ``clip_norm`` by their global norm, then one
-    update → (new params, new state, the norm before clipping)."""
+    update → (new params, new state, the norm before clipping).  Leaves
+    may be DTensors (the module's docstring)."""
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    if cfg.kind in ("adamw", "adamw8bit"):
+    if any(is_dtensor(p) for p in sorted_leaves(params)):
+        new_p, new_s = _apply_sharded(cfg, grads, state, params, step)
+    elif cfg.kind in ("adamw", "adamw8bit"):
         new_p, new_s = adam_update(cfg, grads, state, params, step)
     else:
         new_p, new_s = adafactor_update(cfg, grads, state, params, step)

@@ -28,7 +28,11 @@ prefill) they must equal their plain version and, causal, the whole
 call's rows bit for bit.  The
 reduced MoE, hybrid and xLSTM models must prefill, prefill in chunks and
 decode on the card as on the CPU, and serve as the JAX engine's fixture
-records.
+records.  On an NCCL group of one rank, the reduced InternLM2's sharded
+train step (parameters and optimizer state as DTensors) must equal the
+unsharded step bit for bit per optimizer kind, and a sharded trainer's
+checkpoint must restore into an unsharded trainer, and the reverse, bit
+for bit.
 """
 import dataclasses
 
@@ -878,3 +882,122 @@ def test_families_serve_on_card_like_the_jax_engine(cuda, arch):
     res = cs.serve_against_fixture(rec["models"][arch], cuda)
     assert res["max_abs_err"] <= cs.LOGIT_ATOL
     assert (LAUNCHES["paged_attention"] > n0) == (arch != "xlstm-350m")
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer at world size 1 on NCCL (the gloo tests' twins)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(cuda, tmp_path_factory):
+    """A ("data", "model") (1, 1) mesh over an NCCL group of one rank
+    (every collective a real NCCL call), deterministic algorithms on for
+    the bit-for-bit checks; torn down after the module."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    # deterministic cuBLAS needs its workspace fixed
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    rdzv = tmp_path_factory.mktemp("nccl") / "rdzv"
+    dist.init_process_group(
+        "nccl", init_method=f"file://{rdzv}", world_size=1, rank=0,
+        device_id=torch.device("cuda", torch.cuda.current_device()),
+        timeout=datetime.timedelta(seconds=60))
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield make_test_mesh((1, 1), ("data", "model"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+
+
+def _reduced_train(kind):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, RunConfig
+    from repro_torch.optim import OptConfig
+    model = Model(get_config("internlm2-1.8b", reduced=True),
+                  RunConfig(compute_dtype="float32", microbatches=2,
+                            attn_q_chunk=32, attn_kv_chunk=32))
+    return model, OptConfig(kind=kind, lr=1e-3, warmup_steps=1,
+                            total_steps=10)
+
+
+def _tree_bits_equal(a, b) -> bool:
+    from repro_torch.checkpoint.checkpointer import leaf_paths
+    from repro_torch.distributed.sharding import gather
+    la, lb = dict(leaf_paths(a)), dict(leaf_paths(b))
+    return sorted(la) == sorted(lb) and all(
+        gather(la[p]).dtype == lb[p].dtype
+        and torch.equal(gather(la[p]).view(torch.uint8),
+                        gather(lb[p]).view(torch.uint8)) for p in la)
+
+
+@pytest.mark.parametrize("kind", ["adamw", "adamw8bit", "adafactor"])
+def test_sharded_step_on_nccl_equals_unsharded(cuda, nccl_mesh, kind):
+    """One step of the reduced InternLM2 (2 microbatches, f32) with
+    parameters and optimizer state as DTensors on the one-rank NCCL mesh
+    equals the unsharded step on the card bit for bit: metrics, every
+    parameter and every state leaf."""
+    from repro_torch.data.pipeline import PipelineConfig, _batch_at
+    from repro_torch.distributed.sharding import param_sharding
+    from repro_torch.models import params_from_numpy
+    from repro_torch.models.common import logical_tree, spec_shapes
+    from repro_torch.optim import init_opt
+    from repro_torch.train import make_train_step
+    from repro_torch.train.trainer import opt_sharding, shard_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, oc = _reduced_train(kind)
+    host = model.init_numpy(0)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in _batch_at(
+        model.cfg, PipelineConfig(batch=4, seq=48), 2).items()}
+    specs = model.specs()
+    psh = param_sharding(logical_tree(specs), spec_shapes(specs), nccl_mesh)
+    p = params_from_numpy(host, cuda)
+    plain = make_train_step(model, oc)(p, init_opt(oc, p), batch, 1)
+    sp, so = shard_state(oc, params_from_numpy(host, cuda), psh,
+                         opt_sharding(model, oc, nccl_mesh))
+    sharded = make_train_step(model, oc, psh)(sp, so, batch, 1)
+    assert {k: float(v) for k, v in sharded[2].items()} == \
+        {k: float(v) for k, v in plain[2].items()}
+    assert _tree_bits_equal(sharded[0], plain[0])
+    assert _tree_bits_equal(sharded[1], plain[1])
+
+
+def test_checkpoints_restore_across_sharding_on_nccl(cuda, nccl_mesh,
+                                                     tmp_path):
+    """A sharded Trainer's checkpoint (AdamW8bit: f32, int8 and bf16
+    leaves) restores into an unsharded trainer, and an unsharded one's
+    into a sharded trainer, every leaf equal to the run's final state bit
+    for bit; the two runs log the same losses and grad norms."""
+    from repro_torch.data import DataPipeline, PipelineConfig
+    from repro_torch.distributed.sharding import is_dtensor, param_sharding
+    from repro_torch.models.common import logical_tree, spec_shapes
+    from repro_torch.train import Trainer, TrainerConfig
+    model, oc = _reduced_train("adamw8bit")
+    specs = model.specs()
+    psh = param_sharding(logical_tree(specs), spec_shapes(specs), nccl_mesh)
+
+    def trainer(name, sharded):
+        pipe = DataPipeline(model.cfg, PipelineConfig(batch=4, seq=48),
+                            device=cuda)
+        return Trainer(model, oc, TrainerConfig(
+            ckpt_dir=str(tmp_path / name), total_steps=3, ckpt_every=3,
+            log_every=1), pipe, param_shardings=psh if sharded else None,
+            device=cuda)
+
+    out = {}
+    for name, sharded in (("sharded", True), ("plain", False)):
+        tr = trainer(name, sharded)
+        out[name] = tr.run()
+        tr.pipeline.close()
+    assert [(m["loss"], m["grad_norm"]) for m in out["sharded"]["metrics"]] \
+        == [(m["loss"], m["grad_norm"]) for m in out["plain"]["metrics"]]
+    want = {"params": out["plain"]["params"], "opt": out["plain"]["opt"]}
+    for src, sharded in (("sharded", False), ("plain", True)):
+        tr = trainer(src, sharded)
+        tr.pipeline.close()
+        p, o, step = tr.try_restore()
+        assert step == 3 and is_dtensor(p["embed"]) == sharded
+        assert _tree_bits_equal({"params": p, "opt": o}, want)

@@ -44,7 +44,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import DataPipeline, PipelineConfig
 from repro_torch.data.pipeline import _batch_at
 from repro_torch.models import Model, RunConfig, params_from_numpy
-from repro_torch.models.common import tree_leaves
+from repro_torch.distributed.sharding import MeshShape, param_sharding
+from repro_torch.models.common import logical_tree, spec_shapes, tree_leaves
 from repro_torch.optim import OptConfig, apply_opt, init_opt
 from repro_torch.optim import optimizer as TO
 from repro_torch.train import (SimulatedFailure, Trainer, TrainerConfig,
@@ -441,7 +442,9 @@ def test_restart_is_a_deterministic_continuation():
 
 def test_straggler_watchdog_and_sharding_refused():
     """A step slower than ``straggler_factor`` times the EWMA is recorded;
-    ``param_shardings`` is refused until the port shards (ROADMAP A12)."""
+    ``param_shardings`` that place nothing (built over a ``MeshShape``,
+    which has no devices) are refused: sharded training needs a
+    ``DeviceMesh`` (``tests/test_torch_distributed.py`` trains on one)."""
     with tempfile.TemporaryDirectory() as d:
         tr = _make_trainer(d, total=8)
         orig, calls = tr.train_step, {"n": 0}
@@ -455,9 +458,12 @@ def test_straggler_watchdog_and_sharding_refused():
         tr.run()
         tr.pipeline.close()
         assert len(tr.straggler_steps) >= 1
-        with pytest.raises(NotImplementedError, match="A12"):
+        specs = tr.model.specs()
+        shapes_only = param_sharding(logical_tree(specs), spec_shapes(specs),
+                                     MeshShape(("data", "model"), (1, 1)))
+        with pytest.raises(ValueError, match="DeviceMesh"):
             Trainer(tr.model, tr.opt_cfg, tr.tc, tr.pipeline,
-                    param_shardings={}, device="cpu")
+                    param_shardings=shapes_only, device="cpu")
 
 
 # ---------------------------------------------------------------------------
