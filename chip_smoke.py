@@ -31,6 +31,12 @@ plain chunked attention, as the JAX package's training does.
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  Phases, each fatal on failure:
 
+0. contracts — the port's static contract checker
+   (``src/repro_torch/analysis/``, loaded as
+   ``scripts/check_port_contracts.py`` loads it) runs every pass over this
+   checkout before anything is built: one line per finding, a summary
+   line, and the run fails on any error finding (or a pass that raises),
+   so the card never builds or times a tree that breaks its contracts;
 1. build — compile the three kernels with ``nvcc`` at once (one process
    per source) and print what ``-Xptxas -v`` says for the TLB sweep's four
    templates (registers, stack frame, spills), failing where any has a
@@ -524,6 +530,26 @@ def fail(msg: str) -> None:
 def phase(name: str):
     print(f"\n=== {name} ===", flush=True)
     return time.time()
+
+
+def contracts_phase() -> None:
+    """Phase 0: ``scripts/check_port_contracts.py`` run in this process
+    over this checkout (the checker loaded as a package of its own,
+    stdlib only): one line per finding and a summary line; fails on any
+    error finding and on a checker that cannot run (exit code 2)."""
+    import importlib.util
+    path = os.path.join(HERE, "scripts", "check_port_contracts.py")
+    spec = importlib.util.spec_from_file_location("check_port_contracts",
+                                                  path)
+    script = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(script)
+    except OSError as e:
+        fail(f"cannot load the contract checker: {e}")
+    rc = script.main(["--root", HERE])
+    if rc != 0:
+        fail(f"the contract checker exited {rc}: the tree breaks the "
+             "port's contracts (python scripts/check_port_contracts.py)")
 
 
 def smi(query: str) -> str:
@@ -2243,6 +2269,12 @@ def main() -> int:
     card = smi("name,power.limit")
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    # -------------------------------------------------------- 0. contracts
+    t0 = phase("0. contracts (the port's static contract checker)")
+    contracts_phase()
+    contracts = dict(wall_s=round(time.time() - t0, 3))
+    print(f"phase 0 wall {contracts['wall_s']:.3f} s")
+
     # ------------------------------------------------------------ 1. build
     t0 = phase("1. build (nvcc, sm_90a; the three kernels at once)")
     from concurrent.futures import ThreadPoolExecutor
@@ -2548,7 +2580,8 @@ def main() -> int:
     phase("5. report")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, kernels=[tlb, pa, fa], tlb_sweep=tlb_out,
+        json.dump(dict(card=card, contracts=contracts,
+                       kernels=[tlb, pa, fa], tlb_sweep=tlb_out,
                        serving=serve_out, prefill=flash_out,
                        chunked_prefill=chunk_out, families=fam_out,
                        encoder_vlm_training=ev_out,
