@@ -278,7 +278,19 @@ D1. InternLM2-1.8B trained at full width and depth (24 layers, d_model
     sharded one, every leaf equal bit for bit; ``ef_allreduce`` of a 2^20
     f32 gradient equal to the plain quantise-dequantise and its residual
     to the remainder, and ``pipeline_forward`` at one stage equal to the
-    block applied in order, bit for bit; the phase's wall, both runs'
+    block applied in order, bit for bit.  The sharded trainer runs the
+    tensor-parallel compute (each parameter gathered over the data axes
+    only, the model shard kept: at (1, 1) the whole leaf, every
+    tensor-parallel operator the identity); then one bf16
+    ``Model.forward`` of 1 x 1,024 tokens through the tensor-parallel
+    backbone on the (1, 1) mesh from the final parameters as DTensors: 24
+    flash launches, logits equal bit for bit to the unsharded forward's;
+    and the flash kernel on each model rank's heads of one InternLM2
+    layer (S 3,072, H 16 / KVH 8, D 128, causal, bf16) at tp 2, 4 and 8,
+    and of one HuBERT-XLarge layer (4 x 1,500, 16 / 16 heads, D = 80,
+    non-causal) at tp 4: q's heads and the KV heads they read passed as
+    strided views (no copy), each equal bit for bit to the whole call's
+    heads (``D1_HEAD_SLICES``); the phase's wall, both runs'
     step medians, the checkpoint's GB and its save and restore seconds,
     peak memory;
 V1. LLaVA-NeXT-34B at full width (60 layers, d_model 7,168, 56 / 8 heads,
@@ -297,8 +309,9 @@ V1. LLaVA-NeXT-34B at full width (60 layers, d_model 7,168, 56 / 8 heads,
     and decode-step times, peak memory;
 5. the kernel line (the TLB kernel's ``launches`` are phase 2's, its
    ``launches_by_path`` also W1's and W2's; the attention kernels'
-   ``launches_by_path`` also C1's comparisons, C2's, M1-M3's, E1's and
-   V1's; the flash line's ``at_q_offset`` C1's timing, ``at_d80`` E1's and
+   ``launches_by_path`` also C1's comparisons, C2's, M1-M3's, E1's,
+   D1's (the tensor-parallel forward, and the head slices held to the
+   whole call) and V1's; the flash line's ``at_q_offset`` C1's timing, ``at_d80`` E1's and
    ``at_llava`` V1's, the paged line's ``at_v1_step`` V1's; R1-R3's TLB
    launches and R4's and R5's attention launches in ``launches_by_path``),
    the script's wall, the card line, and the ``{"ok": true, ...}`` line.
@@ -497,6 +510,11 @@ D1_BATCH, D1_SEQ, D1_STEPS = 4, 1024, 3
 # [n_micro, Bm, d] through one stage of tanh(x @ w)
 D1_EF_N = 1 << 20
 D1_PIPE = (8, 4, 2048)
+# the tensor-parallel forward's tokens; the flash kernel on each model
+# rank's heads: (B, S, H, KVH, D, causal) of one layer, and the tp sizes
+D1_FWD_SEQ = 1024
+D1_HEAD_SLICES = (((1, 3072, 16, 8, 128, True), (2, 4, 8)),
+                  ((E1_BATCH, E1_FRAMES, 16, 16, 80, False), (4,)))
 
 # ------------------------------------------------- the chaos rows, R1-R5
 CHAOS_REF_JSON = os.path.join(HERE, "tests", "data",
@@ -2541,6 +2559,11 @@ def main() -> int:
         **{tag: n["flash_attention"] for tag, n in m_launches.items()},
         E1_vs_plain=e1["vs_plain_launches"],
         E1=e1["launches"]["flash_attention"],
+        D1_tensor_parallel_forward=ev_out["d1"]["tensor_parallel"][
+            "forward"]["flash_launches"],
+        D1_head_slices_vs_whole=sum(
+            r["launches"] for r in ev_out["d1"]["tensor_parallel"][
+                "head_slices"]),
         V1_prefill=v1["prefill_launches"]["flash_attention"],
         V1_engine=v1["engine"]["launches"]["flash_attention"])
     pa["launches_by_path"] = dict(
@@ -4110,11 +4133,81 @@ def _leaves_equal(a, b) -> list:
     return bad
 
 
+def d1_tensor_parallel(torch, np, dev, model, mesh, psh, params):
+    """D1's tensor-parallel checks on the card: ``Model.forward`` through
+    the tensor-parallel backbone on ``mesh`` from ``params`` placed as
+    DTensors by ``psh`` (no copy at one rank) against the unsharded
+    forward, bit for bit, its flash launches counted; then the flash
+    kernel on each model rank's heads (``D1_HEAD_SLICES``) as strided
+    views against the whole call, bit for bit."""
+    import dataclasses
+    from repro_torch.checkpoint.checkpointer import leaf_paths, rebuild
+    from repro_torch.distributed.sharding import from_local
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    from repro_torch.models.layers import kv_heads_of
+    places = dict(leaf_paths(psh))
+    sp = rebuild(params, {p: from_local(x, places[p], x.shape)
+                          for p, x in leaf_paths(params)})
+    tp_model = dataclasses.replace(model, mesh=mesh)
+    tokens = torch.from_numpy(np.random.default_rng(D1_STEPS).integers(
+        0, model.cfg.vocab, (1, D1_FWD_SEQ))).to(dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.time()
+        reset_counts()
+        got, _ = tp_model.forward(sp, tokens)
+        torch.cuda.synchronize()
+        n = launch_counts()["flash_attention"]
+        t2 = time.time()
+        want, _ = model.forward(params, tokens)
+        torch.cuda.synchronize()
+        t3 = time.time()
+    if n != model.cfg.n_layers:
+        fail(f"D1: the tensor-parallel forward launched the flash kernel "
+             f"{n} times, not once per layer ({model.cfg.n_layers})")
+    if not (_bits_equal(got, want) and torch.isfinite(got).all()):
+        fail("D1: the tensor-parallel forward's logits differ from the "
+             "unsharded forward's (max |diff| "
+             f"{(got.float() - want.float()).abs().max().item():.3g})")
+    forward = dict(flash_launches=n, seconds=t2 - t1,
+                   unsharded_seconds=t3 - t2, logits=tuple(got.shape))
+    del got, want, sp
+    slices = []
+    for (B, S, H, KVH, D, causal), tps in D1_HEAD_SLICES:
+        q, k, v = flash_inputs((B, S, H, KVH, D), torch.bfloat16, dev)
+        whole = flash_attention_gqa(q, k, v, causal=causal)
+        group = H // KVH
+        for tp in tps:
+            hl = H // tp
+            n0 = launch_counts()["flash_attention"]
+            for r in range(tp):
+                qr = q[:, :, r * hl:(r + 1) * hl]
+                kr = kv_heads_of(k, r * hl, hl, group)
+                vr = kv_heads_of(v, r * hl, hl, group)
+                if any(t.is_contiguous() or t.untyped_storage().data_ptr()
+                       != base.untyped_storage().data_ptr()
+                       for t, base in ((qr, q), (kr, k), (vr, v))):
+                    fail(f"D1: rank {r}'s heads at tp {tp} are not strided "
+                         "views of the layer's q, k, v")
+                o = flash_attention_gqa(qr, kr, vr, causal=causal)
+                if not _bits_equal(o, whole[:, :, r * hl:(r + 1) * hl]):
+                    fail(f"D1: the flash kernel on rank {r}'s heads at tp "
+                         f"{tp}, {(B, S, H, KVH, D)} causal={causal}, "
+                         "differs from the whole call's heads")
+            slices.append(dict(shape=(B, S, H, KVH, D), causal=causal,
+                               tp=tp, launches=launch_counts()[
+                                   "flash_attention"] - n0))
+        del q, k, v, whole
+    return dict(forward=forward, head_slices=slices)
+
+
 def d1_phase(torch, np, dev):
     """D1: InternLM2-1.8B at full width trained through the sharded
-    trainer on one NCCL rank and through the unsharded one, bit for bit;
-    the checkpoints restored across the two; the EF all-reduce and the
-    pipeline on card tensors."""
+    (tensor-parallel) trainer on one NCCL rank and through the unsharded
+    one, bit for bit; the checkpoints restored across the two; the
+    tensor-parallel forward and the flash kernel on each rank's heads
+    (:func:`d1_tensor_parallel`); the EF all-reduce and the pipeline on
+    card tensors."""
     import datetime
     import shutil
     import torch.distributed as dist
@@ -4133,7 +4226,9 @@ def d1_phase(torch, np, dev):
     t0 = phase(f"D1. {D_ARCH} trained at full width through the sharded "
                f"trainer on one NCCL rank and unsharded: {D1_BATCH} x "
                f"{D1_SEQ} tokens, {D1_STEPS} steps each; checkpoints "
-               "restored across; EF all-reduce and GPipe on the card")
+               "restored across; the tensor-parallel forward and the flash "
+               "kernel on each rank's heads; EF all-reduce and GPipe on "
+               "the card")
     free_earlier_phases(torch)
     root = os.path.join(HERE, "build", "d1")
     shutil.rmtree(root, ignore_errors=True)
@@ -4221,6 +4316,10 @@ def d1_phase(torch, np, dev):
                      f"unsharded run's state at {bad[:5]} (step {step})")
             del p, o, tr
             marks.append((f"the {src} restore and comparison", time.time()))
+        tp = d1_tensor_parallel(torch, np, dev, model, mesh, psh,
+                                want["params"])
+        marks.append(("the tensor-parallel forward and head slices",
+                      time.time()))
         del want
         ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
                          for d, _, fs in os.walk(os.path.join(root,
@@ -4275,7 +4374,7 @@ def d1_phase(torch, np, dev):
     step_s = {name: statistics.median([m["time"] for m in r["metrics"]][1:])
               for name, r in runs.items()}
     out = dict(runs=runs, restores=restores, step_median_s=step_s,
-               checkpoint_gb=ckpt_bytes / 1e9,
+               tensor_parallel=tp, checkpoint_gb=ckpt_bytes / 1e9,
                tokens_per_s={k: D1_BATCH * D1_SEQ / v
                              for k, v in step_s.items()},
                timeline_s=timeline, wall_s=time.time() - t0)
@@ -4294,6 +4393,15 @@ def d1_phase(torch, np, dev):
               f"{r['seconds']:.2f} s, every leaf equal")
     print(f"ef_allreduce of {D1_EF_N:,} f32 and pipeline_forward "
           f"{D1_PIPE} at one NCCL rank: bit for bit")
+    f = tp["forward"]
+    print(f"tensor-parallel forward of 1 x {D1_FWD_SEQ} tokens on the (1, 1)"
+          f" mesh: {f['flash_launches']} flash launches, logits equal to the "
+          f"unsharded forward's bit for bit ({f['seconds']:.3f} s, unsharded "
+          f"{f['unsharded_seconds']:.3f} s)")
+    for r in tp["head_slices"]:
+        print(f"flash on each rank's heads, {r['shape']} causal="
+              f"{r['causal']} at tp {r['tp']}: {r['launches']} strided "
+              "launches, each equal to the whole call's heads bit for bit")
     print("timeline: " + ", ".join(f"{k} {v:.1f} s"
                                    for k, v in timeline.items()))
     print(f"({out['wall_s']:.1f} s in all)")

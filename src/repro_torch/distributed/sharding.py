@@ -30,9 +30,12 @@ tested in one process) as well as a ``DeviceMesh``.  ``torch.distributed``
 is imported inside the functions that need it, so importing the port
 stays light.
 
-The port computes on plain local tensors (a rank gathers the parameters
-it needs, :mod:`..train.train_step`); DTensors hold what is *stored*
-sharded: parameters, optimizer state, batches and checkpoints.
+The port computes on plain local tensors; DTensors hold what is *stored*
+sharded: parameters, optimizer state, batches and checkpoints.  A rank
+gathers a parameter over the data axes only (:func:`gather_data`) and
+keeps its ``"model"`` shard, on which the layer computes tensor-parallel
+(:mod:`.tensor_parallel`, :mod:`..train.train_step`); a parameter whose
+layer has no tensor-parallel form is gathered whole (:func:`gather`).
 """
 from __future__ import annotations
 
@@ -43,8 +46,13 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from .tensor_parallel import ModelGroup
+
 AxisVal = Union[None, str, Tuple[str, ...]]
 PyTree = Any
+
+#: the mesh axis the tensor-parallel compute splits over
+MODEL_AXIS = "model"
 
 # data-parallel super-axis: ("pod","data") on multi-pod meshes collapses to
 # whatever subset exists on the current mesh (see _resolve).
@@ -392,10 +400,68 @@ def shard_local(full: torch.Tensor, sharding: Sharding):
     return from_local(local, sharding, full.shape)
 
 
+#: calls of :func:`gather` on a DTensor sharded over the model axis (a
+#: leaf materialised whole on every model rank)
+GATHERS: Dict[str, int] = {"model": 0}
+
+
+def _shards_model(x) -> bool:
+    return any(name == MODEL_AXIS and pl.is_shard() for name, pl in
+               zip(x.device_mesh.mesh_dim_names, x.placements))
+
+
 def gather(x: torch.Tensor) -> torch.Tensor:
     """The whole tensor of a DTensor on every rank (``full_tensor``); a
-    plain tensor unchanged."""
-    return x.full_tensor() if is_dtensor(x) else x
+    plain tensor unchanged.  Counts the DTensors sharded over the model
+    axis in ``GATHERS["model"]``."""
+    if not is_dtensor(x):
+        return x
+    if _shards_model(x):
+        GATHERS["model"] += 1
+    return x.full_tensor()
+
+
+def gather_data(x: torch.Tensor) -> torch.Tensor:
+    """This rank's part of a DTensor along the model axis, whole along
+    every other mesh axis: the data axes redistributed to ``Replicate``,
+    the placement on ``"model"`` kept, then ``to_local``; a plain tensor
+    unchanged."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    pls = tuple(pl if name == MODEL_AXIS else Replicate()
+                for name, pl in zip(mesh.mesh_dim_names, x.placements))
+    if pls != tuple(x.placements):
+        x = x.redistribute(mesh, pls)
+    return x.to_local()
+
+
+def model_range(shape: Sequence[int], sharding: Sharding,
+                coordinate: Optional[Sequence[int]] = None
+                ) -> Optional[Tuple[int, slice]]:
+    """(the tensor dimension ``sharding`` splits over the model axis, the
+    rank at ``coordinate``'s slice of it (default: this rank's), as
+    :func:`local_slices` gives it), or None where the model axis splits
+    nothing."""
+    ms = mesh_shape(sharding.mesh)
+    if MODEL_AXIS not in ms.axis_names:
+        return None
+    pl = sharding.placements[ms.axis_names.index(MODEL_AXIS)]
+    if not pl.is_shard():
+        return None
+    return pl.dim, local_slices(shape, sharding, coordinate)[pl.dim]
+
+
+def model_group(mesh):
+    """The :class:`ModelGroup` of a ``DeviceMesh``'s model
+    dimension (its process group, size and this rank's index on it); None
+    without a ``DeviceMesh`` or a model dimension."""
+    if not is_device_mesh(mesh) or MODEL_AXIS not in mesh.mesh_dim_names:
+        return None
+    m = mesh.mesh_dim_names.index(MODEL_AXIS)
+    return ModelGroup(mesh.get_group(MODEL_AXIS), int(mesh.shape[m]),
+                      int(mesh.get_coordinate()[m]))
 
 
 def local(x: torch.Tensor) -> torch.Tensor:
@@ -438,18 +504,29 @@ class _SumOver(torch.autograd.Function):
 
 
 def reduce_grad(g: torch.Tensor, sharding: Sharding,
-                axes: Sequence[str]):
-    """The mean over the data ranks ``axes`` of a full-size gradient ``g``
-    (each rank's own), as a DTensor placed by ``sharding``: ``g / n``
-    partial over ``axes`` and replicated over the other mesh axes,
-    redistributed (a reduce-scatter where ``sharding`` shards a data axis,
-    an all-reduce where it replicates one)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+                axes: Sequence[str], shape: Optional[Sequence[int]] = None):
+    """The mean over the data ranks ``axes`` of a gradient ``g`` (each
+    rank's own), as a DTensor placed by ``sharding``: ``g / n`` partial
+    over ``axes``, redistributed (a reduce-scatter where ``sharding``
+    shards a data axis, an all-reduce where it replicates one).  ``g`` is
+    the leaf's whole gradient, replicated over the other mesh axes; or,
+    where ``shape`` (the leaf's global shape) is given and ``g``'s differs
+    from it, this rank's model shard of it, placed on the model axis as
+    ``sharding`` places the leaf (``Shard(d)``)."""
+    from torch.distributed.tensor import Partial, Replicate
     mesh = sharding.mesh
     ms = mesh_shape(mesh)
     n = math.prod(ms.shape[a] for a in axes)
-    pl = [Partial() if a in axes else Replicate() for a in ms.axis_names]
-    return DTensor.from_local(g / n, mesh, pl, run_check=False).redistribute(
+    shard = shape is not None and tuple(g.shape) != tuple(shape)
+    pl = tuple(Partial() if a in axes else
+               want if shard and a == MODEL_AXIS else Replicate()
+               for a, want in zip(ms.axis_names, sharding.placements))
+    if shard and not any(p.is_shard() for p in pl):
+        raise ValueError(f"a gradient of {tuple(g.shape)} for a leaf of "
+                         f"{tuple(shape)} that the model axis does not "
+                         "split")
+    return from_local(g / n, Sharding(mesh, pl),
+                      shape if shard else g.shape).redistribute(
         mesh, sharding.placements)
 
 

@@ -7,7 +7,10 @@ with the same layouts at every public function (``[B, S, H, D]``
 activations, ``[d_in, d_out]`` weights).  Where the JAX code multiplies in
 the working dtype and asks for an f32 result (``preferred_element_type``),
 the port multiplies the same operands upcast to f32: the products of bf16
-values are exact in f32, so both sum the same terms.
+values are exact in f32, so both sum the same terms.  Attention and the
+MLP also take a model rank's shard of their weights (``mg``, a
+:class:`..distributed.tensor_parallel.ModelGroup`): query heads and
+``d_ff`` columns split over the model ranks, as Megatron splits them.
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as TP
 from ..distributed.sharding import Sharding, is_dtensor, local_slices
+from ..distributed.tensor_parallel import ModelGroup
 from ..kernels.flash_attention.ops import flash_attention_gqa
 from .common import Spec
 from .config import ModelConfig, RunConfig
@@ -246,21 +251,64 @@ def attention_specs(cfg: ModelConfig) -> dict:
     return s
 
 
+def kv_heads_of(k: torch.Tensor, h0: int, n: int, group: int
+                ) -> torch.Tensor:
+    """The KV heads [B, S, KVH, D] that query heads ``h0 .. h0 + n`` read
+    (query head h reads KV head ``h // group``), grouped as attention
+    reads them: a slice of whole groups where ``n`` is a multiple of the
+    group, the one head they share where ``n`` divides it (both views, no
+    copy), else one KV head per query head."""
+    if n % group == 0:
+        return k[:, :, h0 // group:(h0 + n) // group]
+    if group % n == 0:
+        return k[:, :, h0 // group:h0 // group + 1]
+    idx = torch.arange(h0, h0 + n, device=k.device) // group
+    return k.index_select(2, idx)
+
+
 def attention_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                  positions: torch.Tensor
+                  positions: torch.Tensor, mg: Optional[ModelGroup] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, S, d] → q [B, S, H, D], k and v [B, S, KVH, D] (RoPE on q,
-    k; RMSNorm on them first where the config has ``qk_norm``)."""
+    k; RMSNorm on them first where the config has ``qk_norm``).  The head
+    counts are the weights' own: where ``wq`` holds this model rank's
+    columns (its heads ``[r H_l, (r + 1) H_l)``, ``mg``), q holds those
+    heads and k, v the KV heads they read (:func:`kv_heads_of`).  The
+    replicated ``wk``, ``wv`` (and ``q_norm``) are then used in part on
+    each rank: ``copy_to_model`` on k and v before their heads are taken
+    (and on ``q_norm``, and on x into ``wq``) sums their gradients over
+    the model ranks, so each rank ends with the whole gradient."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    D = cfg.head_dim
+    split = TP.splits(mg, p["wq"].shape[-1], cfg.q_dim)
+    xq = TP.copy_to_model(x, mg) if split else x
+    q = (xq @ p["wq"]).reshape(B, S, -1, D)
+    k = (x @ p["wk"]).reshape(B, S, -1, D)
+    v = (x @ p["wv"]).reshape(B, S, -1, D)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+        qn = TP.copy_to_model(p["q_norm"], mg) if split else p["q_norm"]
+        q = rms_norm(q, qn, cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if split:
+        n = q.shape[2]
+        group = cfg.n_heads // cfg.n_kv_heads
+        k = kv_heads_of(TP.copy_to_model(k, mg), mg.rank * n, n, group)
+        v = kv_heads_of(TP.copy_to_model(v, mg), mg.rank * n, n, group)
     return q, k, v
+
+
+def attention_out(cfg: ModelConfig, p: dict, o: torch.Tensor,
+                  mg: Optional[ModelGroup] = None) -> torch.Tensor:
+    """Attention's heads o [B, S, H, D] through ``wo`` → [B, S, d]; where
+    ``wo`` holds this model rank's rows (its heads), the partial products
+    are summed over the model ranks."""
+    B, S = o.shape[:2]
+    out = o.reshape(B, S, -1) @ p["wo"]
+    if TP.splits(mg, p["wo"].shape[-2], cfg.q_dim):
+        out = TP.reduce_from_model(out, mg)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +324,16 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
     }
 
 
-def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, mg: Optional[ModelGroup] = None,
+        d_ff: Optional[int] = None) -> torch.Tensor:
+    """SwiGLU.  Where the weights hold this model rank's part of the
+    ``d_ff`` hidden columns (``mg``; ``w_gate``, ``w_up`` column-parallel,
+    ``w_down`` row-parallel), x's gradient and the output are summed over
+    the model ranks."""
+    split = d_ff is not None and TP.splits(mg, p["w_down"].shape[-2], d_ff)
+    if split:
+        x = TP.copy_to_model(x, mg)
     h = F.silu(x @ p["w_gate"])
     h = h * (x @ p["w_up"])
-    return h @ p["w_down"]
+    out = h @ p["w_down"]
+    return TP.reduce_from_model(out, mg) if split else out

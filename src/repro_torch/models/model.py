@@ -41,6 +41,21 @@ which the JAX training differentiates, on the CPU and on the card alike
 recurrent layers run from a zero state and write none (the in-place
 state writes of the inference passes stay off the graph); cross-entropy
 is taken per sequence chunk, each chunk recomputed in backward.
+
+On a ``DeviceMesh`` with a ``"model"`` dimension the full-sequence passes
+(``backbone``, ``forward``, ``loss``) compute tensor-parallel where a
+weight arrives as this model rank's shard (:meth:`Model.local_params`,
+the sharded train step): attention on the rank's heads (``wq``
+column-parallel, ``wo`` row-parallel, the flash kernel launched on the
+rank's heads on the card), the SwiGLU MLP and the MoE experts on the
+rank's ``d_ff`` columns, and the embedding, the logits and the
+cross-entropy on the rank's rows of the (padded) vocabulary
+(:mod:`..distributed.tensor_parallel`).  A weight that arrives whole is
+computed with whole, with no collective: the Mamba and xLSTM mixers
+(:func:`whole_along_model`), attention whose heads do not split evenly
+over the model ranks, and every weight of the unsharded model, which so
+runs the same code.  ``prefill``, ``prefill_chunked`` and the decode
+steps take whole weights.
 """
 from __future__ import annotations
 
@@ -56,7 +71,12 @@ from . import mamba as M
 from . import moe as MoE
 from . import xlstm as X
 from .._device import resolve_device
-from ..distributed.sharding import (batch_axes, is_device_mesh, sum_over,
+from ..checkpoint.checkpointer import leaf_paths, rebuild
+from ..distributed import tensor_parallel as TP
+from ..distributed.sharding import (MODEL_AXIS, Sharding, batch_axes,
+                                    gather, gather_data, is_device_mesh,
+                                    is_dtensor, mesh_shape, model_group,
+                                    model_range, sum_over,
                                     with_logical_constraint)
 from .common import Spec, count_params, init_params_numpy, tree_map
 from .config import ModelConfig, RunConfig
@@ -161,6 +181,49 @@ def model_specs(cfg: ModelConfig, rc: RunConfig) -> dict:
     return s
 
 
+#: logical axes whose model shard a layer computes on
+TP_AXES = ("q_heads", "mlp", "vocab")
+RECURRENT_MIXERS = ("mamba", "mlstm", "slstm")
+
+
+def whole_along_model(cfg: ModelConfig, path: str, tp: int
+                      ) -> Optional[str]:
+    """Why the leaf at ``path`` (``"blocks/pos0/attn/wq"``) is gathered
+    whole along a model axis of ``tp`` ranks for the compute, or None
+    where its layer has a tensor-parallel form: the Mamba and xLSTM
+    mixers have none yet (their fused ``[x | z]`` in-projections do not
+    split into matching halves by contiguous shards: ROADMAP A12d), and
+    attention whose ``n_heads`` do not split evenly over ``tp`` (a ``wq``
+    sharded on ``q_dim`` would split mid-head)."""
+    parts = path.split("/")
+    if parts[0] == "blocks" and len(parts) > 2:
+        if parts[2] in RECURRENT_MIXERS:
+            return f"the {parts[2]} mixer has no tensor-parallel form"
+        if parts[2] == "attn" and cfg.n_heads % tp:
+            return (f"{cfg.n_heads} heads do not split over {tp} model "
+                    "ranks")
+    return None
+
+
+def keeps_model_shard(cfg: ModelConfig, path: str,
+                      logical: Sequence[Optional[str]], shape,
+                      sharding: Sharding) -> bool:
+    """Whether the leaf at ``path`` (``logical`` axes, global ``shape``,
+    placed by ``sharding``) is computed on as this rank's model shard: the
+    model axis alone splits one of its :data:`TP_AXES` dimensions, and
+    :func:`whole_along_model` names no reason to gather it whole."""
+    ms = mesh_shape(sharding.mesh)
+    r = model_range(shape, sharding, (0,) * len(ms.sizes))
+    if r is None:
+        return False
+    d = r[0]
+    alone = all(not (pl.is_shard() and pl.dim == d)
+                for a, pl in zip(ms.axis_names, sharding.placements)
+                if a != MODEL_AXIS)
+    return (alone and logical[d] in TP_AXES
+            and whole_along_model(cfg, path, ms.shape[MODEL_AXIS]) is None)
+
+
 # ---------------------------------------------------------------------------
 # decode-state structure
 # ---------------------------------------------------------------------------
@@ -259,16 +322,19 @@ def _slice_state(st: dict, i: int) -> dict:
 @dataclasses.dataclass(frozen=True)
 class Model:
     """``mesh`` (a ``DeviceMesh``) and ``act_rules`` make the model one
-    data-parallel rank's: the batch it is given is this rank's rows of a
-    global batch split over the mesh axes of ``ACT_RULES[act_rules]``'s
-    "batch" rule, and the statistics of the global batch — the loss's
-    token sum and mask count, the MoE balance loss's means — are summed
-    over those ranks (where a gradient flows through the sum, its backward
-    sums the gradient over the same ranks: each rank's gradient is then
-    the number of data ranks times its share, and their mean the global
-    batch's, :func:`..train.train_step.make_train_step`).  Activations go
-    through ``with_logical_constraint``, the identity on the plain tensors
-    the port computes on."""
+    rank's of a mesh.  Along the data axes (``ACT_RULES[act_rules]``'s
+    "batch" rule) the batch it is given is this rank's rows of a global
+    batch, and the statistics of the global batch — the loss's token sum
+    and mask count, the MoE balance loss's means — are summed over those
+    ranks (where a gradient flows through the sum, its backward sums the
+    gradient over the same ranks: each rank's gradient is then the number
+    of data ranks times its share, and their mean the global batch's,
+    :func:`..train.train_step.make_train_step`).  Along ``"model"`` the
+    full-sequence passes compute tensor-parallel on the weights' model
+    shards (the module's docstring; :meth:`local_params`).  The compute
+    runs on plain tensors: DTensor parameters are turned into this rank's
+    local tensors first, and activations go through
+    ``with_logical_constraint``, the identity on plain tensors."""
     cfg: ModelConfig
     rc: RunConfig
     mesh: Optional[Any] = None
@@ -308,6 +374,26 @@ class Model:
                     if k in ("embed", "lm_head", "blocks")
                     else v) for k, v in params.items()}
 
+    def local_params(self, params: PyTree) -> PyTree:
+        """The tensors the passes compute on: each DTensor leaf gathered
+        over the data axes only, keeping this rank's model shard where
+        :func:`keeps_model_shard` says its layer computes on it, and
+        gathered whole (``gather``) otherwise; plain tensors as they
+        are."""
+        leaves = leaf_paths(params)
+        if not any(is_dtensor(x) for _, x in leaves):
+            return params
+        logical = {path: sp.logical for path, sp in leaf_paths(self.specs())}
+
+        def one(path, x):
+            if not is_dtensor(x):
+                return x
+            sh = Sharding(x.device_mesh, tuple(x.placements))
+            if keeps_model_shard(self.cfg, path, logical[path], x.shape, sh):
+                return gather_data(x)
+            return gather(x)
+        return rebuild(params, {path: one(path, x) for path, x in leaves})
+
     # ---- helpers ----
     def _constrain(self, x, logical):
         return with_logical_constraint(x, logical, self.mesh, self.act_rules)
@@ -329,7 +415,12 @@ class Model:
         ``patch_embeds`` [B, n_patches, d] take the first ``min(n_patches,
         S)`` positions (cast to the compute dtype), as the JAX package's
         ``dynamic_update_slice`` writes them."""
-        x = params["embed"].to(self.cdt)[tokens.long()]
+        table = params["embed"].to(self.cdt)
+        mg = model_group(self.mesh)
+        if TP.splits(mg, table.shape[0], padded_vocab(self.cfg)):
+            x = TP.vocab_parallel_embed(table, tokens, mg)
+        else:
+            x = table[tokens.long()]
         if self.cfg.n_patches and patch_embeds is not None:
             n = min(self.cfg.n_patches, x.shape[1])
             x = torch.cat([patch_embeds[:, :n].to(self.cdt), x[:, n:]], 1)
@@ -345,16 +436,34 @@ class Model:
             x = self._embed(params, tokens, patch_embeds)
         return self._constrain(x, ("batch", "seq", "embed"))
 
-    def _logits(self, params, x):
+    def _head_of(self, params, dtype):
+        """(the lm head [d, V_l] in ``dtype``: ``lm_head``, or the tied
+        ``embed``'s transpose, which shares the embedding's vocabulary
+        shard; whether it holds this model rank's vocabulary shard; the
+        global class of its first column)."""
         head = params.get("lm_head")
         if head is None:
             head = params["embed"].T
-        logits = x @ head.to(x.dtype)
-        V = padded_vocab(self.cfg)
-        if V != self.cfg.vocab:  # mask padding classes
-            pad = torch.arange(V, device=x.device) >= self.cfg.vocab
+        mg = model_group(self.mesh)
+        split = TP.splits(mg, head.shape[-1], padded_vocab(self.cfg))
+        return head.to(dtype), split, mg.rank * head.shape[-1] if split else 0
+
+    def _pad_classes(self, n: int, start: int, device) -> torch.Tensor:
+        """Which of classes ``start .. start + n`` are vocabulary padding
+        (by global class index)."""
+        return torch.arange(start, start + n, device=device) >= self.cfg.vocab
+
+    def _logits(self, params, x):
+        """x [B, S, d] → logits [B, S, V] (padding classes ``-1e9``); on a
+        vocabulary-split head, this rank's columns gathered over the model
+        ranks."""
+        head, split, start = self._head_of(params, x.dtype)
+        mg = model_group(self.mesh) if split else None
+        logits = TP.copy_to_model(x, mg) @ head
+        if padded_vocab(self.cfg) != self.cfg.vocab:  # mask padding classes
+            pad = self._pad_classes(head.shape[-1], start, x.device)
             logits = torch.where(pad, -1e9, logits.float())
-        return logits
+        return TP.gather_from_model(logits, mg)
 
     def _mixer(self, j: int, p: dict, h: torch.Tensor,
                state: Optional[dict]):
@@ -396,7 +505,8 @@ class Model:
             f, aux = MoE.moe_ffn(self.cfg, self.rc, p["moe"], h,
                                  mesh=self.mesh, act_rules=self.act_rules)
             return x + f, aux
-        return x + L.mlp(p["mlp"], h), None
+        return x + L.mlp(p["mlp"], h, model_group(self.mesh),
+                         self.cfg.d_ff), None
 
     def _layers(self, params, x: torch.Tensor, state: Optional[dict],
                 attend: Callable, remat: bool = False):
@@ -464,20 +574,22 @@ class Model:
         attention by ``chunked_attention``, each superblock recomputed in
         backward under ``remat == "full"`` while grad mode is on."""
         cfg, rc = self.cfg, self.rc
+        params = self.local_params(params)
+        mg = model_group(self.mesh)
         x = self._inputs(params, tokens, patch_embeds, input_embeds)
         B, S = x.shape[:2]
         if positions is None:
             positions = torch.arange(S, device=x.device).expand(B, S)
 
         def attend(i, p, st, h):
-            q, k, v = L.attention_qkv(cfg, p, h, positions)
+            q, k, v = L.attention_qkv(cfg, p, h, positions, mg)
             if train:
                 o = L.chunked_attention(q, k, v, causal=cfg.causal,
                                         q_chunk=rc.attn_q_chunk,
                                         kv_chunk=rc.attn_kv_chunk)
             else:
                 o = L.prefill_attention(q, k, v, causal=cfg.causal, rc=rc)
-            return o.reshape(B, S, cfg.q_dim) @ p["wo"]
+            return L.attention_out(cfg, p, o, mg)
 
         remat = train and rc.remat == "full" and torch.is_grad_enabled()
         x, aux = self._layers(params, x, None, attend, remat=remat)
@@ -487,6 +599,7 @@ class Model:
                 patch_embeds=None, input_embeds=None, positions=None):
         """Full-sequence forward → (logits [B, S, V], aux) (inference and
         tests; :meth:`backbone`'s inputs)."""
+        params = self.local_params(params)
         x, aux = self.backbone(params, tokens, patch_embeds=patch_embeds,
                                input_embeds=input_embeds,
                                positions=positions)
@@ -502,28 +615,28 @@ class Model:
         logits never exist at once; padded vocabulary classes get a
         ``-1e9`` bias; the sum of ``mask``-weighted token losses (``mask``
         defaults to ones) is divided by ``max(mask.sum(), 1)``, both summed
-        over the data ranks on a mesh (:class:`Model`)."""
-        cfg = self.cfg
+        over the data ranks on a mesh (:class:`Model`).  Each chunk's
+        cross-entropy is :func:`..distributed.tensor_parallel.
+        vocab_parallel_nll`: over this rank's vocabulary shard with the
+        max, the sum of exponentials and the label's logit combined over
+        the model ranks on a split head, ``log sum exp(z - m) + m -
+        z[label]`` on a whole one."""
+        params = self.local_params(params)
         x, aux = self.backbone(params, tokens, patch_embeds=patch_embeds,
                                input_embeds=input_embeds, train=True)
         B, S, _ = x.shape
-        head = params.get("lm_head")
-        if head is None:
-            head = params["embed"].T
-        head = head.to(x.dtype)
-        V = padded_vocab(cfg)
-        pad_bias = torch.where(torch.arange(V, device=x.device) >= cfg.vocab,
-                               -1e9, 0.0).float()
+        head, split, start = self._head_of(params, x.dtype)
+        mg = model_group(self.mesh) if split else None
+        pad_bias = torch.where(self._pad_classes(head.shape[-1], start,
+                                                 x.device), -1e9, 0.0).float()
         labels = labels.long()
         if mask is None:
             mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
         mask = mask.float()
 
         def chunk_nll(xc, lc, mc, head):
-            logits = (xc @ head).float() + pad_bias
-            lse = torch.logsumexp(logits, dim=-1)
-            ll = torch.gather(logits, -1, lc[..., None])[..., 0]
-            return ((lse - ll) * mc).sum()
+            logits = (TP.copy_to_model(xc, mg) @ head).float() + pad_bias
+            return (TP.vocab_parallel_nll(logits, lc, mg, start) * mc).sum()
 
         C = min(xent_chunk, S)
         total = torch.zeros((), dtype=torch.float32, device=x.device)

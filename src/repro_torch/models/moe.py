@@ -29,6 +29,17 @@ outputs in order (here k explicit adds; ``index_add_`` on the card would
 add them by atomics, in no fixed order).  Routing depends only on the
 group's own tokens, so junk in an inactive batch slot never reaches a
 live row.
+
+On a ``DeviceMesh`` whose ``"model"`` ranks hold their columns of the
+experts' ``d_ff`` (the JAX package's ``"tensor"`` expert sharding: every
+expert's ``w_gate`` / ``w_up`` columns and ``w_down`` rows split over
+the model ranks), each rank runs the expert products on its columns and
+the outputs are summed over the model ranks before the combine, so the
+gates multiply whole outputs; the shared experts likewise.  The router
+and the shared gate stay replicated: every model rank routes the same
+bits (its input is the residual stream, which the model ranks hold
+alike, bit for bit, after each all-reduce), so all send a token to the
+same experts.
 """
 from __future__ import annotations
 
@@ -38,10 +49,13 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as TP
 from ..distributed.sharding import (axes_index, batch_axes, is_device_mesh,
-                                    sum_over, with_logical_constraint)
+                                    model_group, sum_over,
+                                    with_logical_constraint)
 from .common import Spec
 from .config import ModelConfig, RunConfig
+from .layers import mlp
 
 
 def moe_specs(cfg: ModelConfig, rc: RunConfig) -> dict:
@@ -182,8 +196,14 @@ def moe_experts(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor,
     eb = buf[:, :E * C].reshape(B, E, C, d).transpose(0, 1).reshape(
         E, B * C, d)                                  # [E, B*C, d]
 
+    mg = model_group(mesh)
+    split = TP.splits(mg, w_down.shape[-2], cfg.d_ff)
+    if split:           # this model rank's d_ff columns of every expert
+        eb = TP.copy_to_model(eb, mg)
     h = F.silu(torch.bmm(eb, w_gate)) * torch.bmm(eb, w_up)
     out = torch.bmm(h, w_down)                        # [E, B*C, d]
+    if split:
+        out = TP.reduce_from_model(out, mg)
     flat_out = out.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
 
     # combine: each token's kept outputs times their gates, added in k order
@@ -197,8 +217,7 @@ def moe_experts(cfg: ModelConfig, rc: RunConfig, p: dict, x: torch.Tensor,
 
     if cfg.n_shared_experts:
         sp = p["shared"]
-        hs = F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])
-        ys = hs @ sp["w_down"]
+        ys = mlp(sp, x, mg, cfg.n_shared_experts * cfg.d_ff)
         gs = torch.sigmoid((x @ sp["gate"]).float()).to(ys.dtype)
         y = y + gs * ys
 

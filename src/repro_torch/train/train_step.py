@@ -11,20 +11,24 @@ gradients in ``rc.grad_dtype``, one slice after another (the JAX
 ``lax.scan``).
 
 With ``param_shardings`` (parameters and optimizer state as DTensors, a
-tree of ``Sharding`` over one ``DeviceMesh``) the step is data-parallel,
-with the semantics of the JAX step on global arrays.  Each rank gathers
-the parameters whole (``full_tensor``), takes its rows of each *global*
-microbatch (rows ``[i B/n, (i+1) B/n)`` make microbatch i, and the data
-ranks split each in order), and runs the loss of a model on the mesh, so
-the masked mean's denominator and the MoE balance loss are the global
-microbatch's (:class:`..models.model.Model`).  The gradients, accumulated
-as above, are averaged over the data ranks into the placements of the
+tree of ``Sharding`` over one ``DeviceMesh``) the step is sharded, with
+the semantics of the JAX step on global arrays.  Along the data axes it
+is data-parallel: each rank takes its rows of each *global* microbatch
+(rows ``[i B/n, (i+1) B/n)`` make microbatch i, and the data ranks split
+each in order) and runs the loss of a model on the mesh, so the masked
+mean's denominator and the MoE balance loss are the global
+microbatch's (:class:`..models.model.Model`).  Along ``"model"`` it is
+tensor-parallel: each parameter is gathered over the data axes only
+(``gather_data``), keeping this rank's model shard, and the model
+computes on it (Megatron heads, SwiGLU and expert columns, vocabulary
+rows: :mod:`..distributed.tensor_parallel`); a parameter whose layer has
+no tensor-parallel form (the Mamba and xLSTM mixers, attention whose
+heads do not split evenly over the model ranks:
+:func:`..models.model.whole_along_model`) is gathered whole. The
+gradients, accumulated as above, are each rank's model shard (or the
+whole leaf's), averaged over the data ranks into the placements of the
 parameters (a reduce-scatter where a leaf is sharded over a data axis),
-and the optimizer updates each rank's shards.  Ranks along the other mesh
-axes ("model") compute the same rows: the parameters are *stored*
-sharded by the rules, and the compute runs on gathered leaves (the JAX
-package's tensor-parallel compute over "model", XLA's partitioner, is
-not ported: ``docs/port.md``).
+and the optimizer updates each rank's shards.
 """
 from __future__ import annotations
 
@@ -143,7 +147,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig,
                     param_shardings: PyTree = None):
     """Returns ``train_step(params, opt_state, batch, step) -> (params,
     opt_state, metrics)``, metrics ``{"loss", "aux", "grad_norm"}`` as f32
-    scalar tensors.  ``param_shardings``: the data-parallel step over
+    scalar tensors.  ``param_shardings``: the sharded step over
     DTensor parameters (the module's docstring)."""
     if param_shardings is not None:
         return _sharded_train_step(model, opt_cfg, param_shardings)
@@ -202,13 +206,15 @@ def _sharded_train_step(model: Model, opt_cfg: OptConfig,
         return x[start:start + bm]
 
     def train_step(params, opt_state, batch, step: int):
-        full = _rebuild(params, [gather(p) for p in _leaves(params)])
+        local = dp_model.local_params(params)
         grads, metrics = _accumulate(
-            dp_model, full, lambda i: {k: rows(v, i)
-                                       for k, v in batch.items()}, n)
-        del full
-        grads = rebuild(params, {path: reduce_grad(g, places[path], axes)
-                                 for path, g in leaf_paths(grads)})
+            dp_model, local, lambda i: {k: rows(v, i)
+                                        for k, v in batch.items()}, n)
+        del local
+        held = dict(leaf_paths(params))
+        grads = rebuild(params, {
+            path: reduce_grad(g, places[path], axes, held[path].shape)
+            for path, g in leaf_paths(grads)})
         new_params, new_opt, gnorm = apply_opt(opt_cfg, grads, opt_state,
                                                params, step)
         return new_params, new_opt, dict(metrics, grad_norm=gnorm)

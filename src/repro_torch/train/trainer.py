@@ -29,7 +29,8 @@ same ``Trainer``:
   ``opt_logical``'s axes; every rank draws the same whole parameter tree
   and keeps its shards, and initialises the optimizer state one leaf at a
   time, keeping its shards of each (:func:`shard_state`);
-* the step is :func:`.train_step.make_train_step`'s data-parallel step;
+* the step is :func:`.train_step.make_train_step`'s sharded step
+  (data-parallel over the data axes, tensor-parallel over "model");
 * checkpoints gather on every rank and rank 0 writes them
   (``Checkpointer(group=WORLD)``), and ``try_restore`` restores *onto*
   the shardings, each rank reading its slices, whatever world size

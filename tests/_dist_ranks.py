@@ -9,6 +9,8 @@ to import torch.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import datetime
 import os
 import shutil
@@ -23,7 +25,16 @@ TRAIN_CASES = {          # name: (arch, microbatches, batch, seq)
     "internlm2-1.8b": ("internlm2-1.8b", 1, 8, 32),
     "hubert-xlarge": ("hubert-xlarge", 2, 8, 32),
     "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", 1, 4, 32),
+    "internlm2-6-heads": ("internlm2-1.8b", 1, 8, 32),
+    "jamba-1.5-large-398b": ("jamba-1.5-large-398b", 1, 4, 32),
 }
+# the optimizer of each case's tensor-parallel step: Adafactor where
+# AdamW's first step, g / (|g| + eps), blows f32 rounding up past the
+# comparison's 1e-6 (the encoder and the Mamba hybrid)
+TP_KINDS = {"hubert-xlarge": "adafactor", "jamba-1.5-large-398b": "adafactor"}
+# the reduced config's fields a case replaces: 6 heads of 32 (q_dim 192)
+# split over 4 model ranks by q_dim (48 columns: a head and a half each)
+OVERRIDES = {"internlm2-6-heads": dict(n_heads=6, n_kv_heads=2)}
 COLLECTIVE_TIMEOUT_S = 60
 
 
@@ -94,16 +105,84 @@ def train_setup(name: str, kind: str):
     from repro_torch.models import Model, RunConfig
     from repro_torch.optim import OptConfig
     arch, micro, batch, seq = TRAIN_CASES[name]
-    model = Model(get_config(arch, True),
-                  RunConfig(microbatches=micro, **CHUNKS))
+    cfg = dataclasses.replace(get_config(arch, True),
+                              **OVERRIDES.get(name, {}))
+    model = Model(cfg, RunConfig(microbatches=micro, **CHUNKS))
     batch = _batch_at(model.cfg, PipelineConfig(batch=batch, seq=seq), 3)
     return model, OptConfig(kind=kind, **OPT), model.init_numpy(0), batch
 
 
-def sharded_step(name: str, kind: str, mesh):
+@contextlib.contextmanager
+def probe():
+    """Records, while it is open, what the model computes on: the query
+    heads, MLP and expert hidden widths and logits' vocabulary widths it
+    sees (sets), the experts every call routes to (``"routes"``), and the
+    leaves sharded over "model" that ``Model.local_params`` gathers whole
+    for the compute (``"model_gathers"``, read off ``GATHERS``; the
+    optimizer's own gathers are not counted)."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as TM
+    from repro_torch.models import moe as MoE
+    rec = {"q_heads": set(), "mlp": set(), "expert": set(), "vocab": set(),
+           "routes": []}
+    saved = [(L, "attention_qkv"), (L, "mlp"), (MoE, "mlp"),
+             (MoE, "moe_experts"), (MoE, "route"),
+             (TP, "vocab_parallel_nll")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    orig = {name: fn for _, name, fn in saved}
+    rec["model_gathers"] = 0
+    local_params = TM.Model.local_params
+
+    def counted(self, params):
+        g0 = S.GATHERS["model"]
+        try:
+            return local_params(self, params)
+        finally:
+            rec["model_gathers"] += S.GATHERS["model"] - g0
+
+    def attention_qkv(*a, **k):
+        q, kk, v = orig["attention_qkv"](*a, **k)
+        rec["q_heads"].add(q.shape[2])
+        return q, kk, v
+
+    def mlp(p, *a, **k):
+        rec["mlp"].add(p["w_down"].shape[-2])
+        return orig["mlp"](p, *a, **k)
+
+    def moe_experts(cfg, rc, p, *a, **k):
+        rec["expert"].add(p["w_down"].shape[-2])
+        return orig["moe_experts"](cfg, rc, p, *a, **k)
+
+    def route(*a, **k):
+        out = orig["route"](*a, **k)
+        rec["routes"].append(out[1].numpy().copy())
+        return out
+
+    def nll(logits, *a, **k):
+        rec["vocab"].add(logits.shape[-1])
+        return orig["vocab_parallel_nll"](logits, *a, **k)
+
+    new = {"attention_qkv": attention_qkv, "mlp": mlp,
+           "moe_experts": moe_experts, "route": route,
+           "vocab_parallel_nll": nll}
+    for mod, name, _ in saved:
+        setattr(mod, name, new[name])
+    TM.Model.local_params = counted
+    try:
+        yield rec
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        TM.Model.local_params = local_params
+
+
+def sharded_step(name: str, kind: str, mesh, record: bool = False):
     """One sharded train step at step 1 → (metrics, new params) as
     numpy, the batch drawn by ``DataPipeline(shardings=...)`` under the
-    activation rules (each rank's rows as a DTensor)."""
+    activation rules (each rank's rows as a DTensor); ``record``: and
+    every rank's :func:`probe` of the step, with its mesh coordinate."""
     from repro_torch.data import DataPipeline, PipelineConfig
     from repro_torch.distributed.sharding import (ACT_RULES, Sharding,
                                                   logical_to_placements,
@@ -130,8 +209,91 @@ def sharded_step(name: str, kind: str, mesh):
         b = next(pipe)
     finally:
         pipe.close()
-    new_p, _, met = make_train_step(model, oc, psh)(params, opt, b, 1)
-    return {k: float(v) for k, v in met.items()}, tree_numpy(new_p)
+    step = make_train_step(model, oc, psh)
+    with probe() if record else contextlib.nullcontext({}) as rec:
+        new_p, _, met = step(params, opt, b, 1)
+    out = {k: float(v) for k, v in met.items()}, tree_numpy(new_p)
+    if not record:
+        return out
+    import torch.distributed as dist
+    rec["coordinate"] = tuple(mesh.get_coordinate())
+    probes = [None] * dist.get_world_size()
+    dist.all_gather_object(probes, rec)
+    return out + (probes,)
+
+
+def tp_forward(mesh, tmp: str) -> None:
+    """``Model.forward`` of the reduced InternLM2 on ``mesh`` from its
+    parameters as DTensors placed by the rules: every rank's logits, and
+    what each rank computed on (:func:`probe`)."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpointer import leaf_paths, rebuild
+    from repro_torch.distributed.sharding import param_sharding, shard_local
+    from repro_torch.models import params_from_numpy
+    from repro_torch.models.common import logical_tree, spec_shapes
+    model, _, P, b = train_setup("internlm2-1.8b", "adamw")
+    model = dataclasses.replace(model, mesh=mesh)
+    specs = model.specs()
+    psh = dict(leaf_paths(param_sharding(logical_tree(specs),
+                                         spec_shapes(specs), mesh)))
+    full = params_from_numpy(P, device="cpu")
+    params = rebuild(full, {p: shard_local(x, psh[p])
+                            for p, x in leaf_paths(full)})
+    with torch.no_grad(), probe() as rec:
+        logits, _ = model.forward(params, torch.from_numpy(b["tokens"]))
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, (logits.numpy(), rec))
+    save(tmp, "tp_forward", got)
+
+
+def tp_operators(mesh, tmp: str) -> None:
+    """Each tensor-parallel operator forward and backward on the model
+    ranks of ``mesh``, from inputs every rank draws alike: every rank's
+    outputs and gradients (the test holds them to the plain ops)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.sharding import model_group
+    mg = model_group(mesh)
+    n, r = mg.size, mg.rank
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((3, 5)).astype(np.float32)
+    parts = rng.standard_normal((n, 3, 5)).astype(np.float32)
+    up = rng.standard_normal((3, 5 * n)).astype(np.float32)
+    table = rng.standard_normal((4 * n, 6)).astype(np.float32)
+    tokens = rng.integers(0, 4 * n, (2, 7))
+    up_e = rng.standard_normal((2, 7, 6)).astype(np.float32)
+    z = (rng.standard_normal((2, 9, 8 * n)) * 3).astype(np.float32)
+    labels = rng.integers(0, 8 * n, (2, 9))
+    out = {}
+
+    def leaf(a):
+        return torch.from_numpy(a.copy()).requires_grad_(True)
+
+    a = leaf(x)
+    y = TP.copy_to_model(a, mg) * torch.from_numpy(parts[r])
+    y.sum().backward()
+    out["copy_to_model"] = (y.detach().numpy(), a.grad.numpy())
+    a = leaf(parts[r])
+    y = TP.reduce_from_model(a, mg)
+    (y * torch.from_numpy(x)).sum().backward()
+    out["reduce_from_model"] = (y.detach().numpy(), a.grad.numpy())
+    a = leaf(parts[r])
+    y = TP.gather_from_model(a, mg)
+    (y * torch.from_numpy(up)).sum().backward()
+    out["gather_from_model"] = (y.detach().numpy(), a.grad.numpy())
+    a = leaf(table[4 * r:4 * (r + 1)])
+    y = TP.vocab_parallel_embed(a, torch.from_numpy(tokens), mg)
+    (y * torch.from_numpy(up_e)).sum().backward()
+    out["vocab_parallel_embed"] = (y.detach().numpy(), a.grad.numpy())
+    a = leaf(z[..., 8 * r:8 * (r + 1)])
+    y = TP.vocab_parallel_nll(a, torch.from_numpy(labels), mg, 8 * r)
+    y.mean().backward()
+    out["vocab_parallel_nll"] = (y.detach().numpy(), a.grad.numpy())
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, (r, out))
+    save(tmp, "tp_ops", dict(ranks=got, n=n, x=x, parts=parts, up=up,
+                             table=table, tokens=tokens, up_e=up_e, z=z,
+                             labels=labels))
 
 
 def make_trainer(name, kind, mesh, ckpt_dir, total, fail_at=None,
@@ -168,9 +330,12 @@ def make_trainer(name, kind, mesh, ckpt_dir, total, fail_at=None,
 # ---------------------------------------------------------------------------
 
 def ranks_four(rank: int, world: int, tmp: str) -> None:
-    """4 ranks: sharded steps on (2,2) and (4,1) per optimizer kind; a
-    Trainer through a one-rank failure and its resume, checkpointed for
-    the elastic restores; EF all-reduce; GPipe; split-sequence decode."""
+    """4 ranks: sharded steps on (2,2), (4,1) and (1,4) per optimizer
+    kind; tensor-parallel steps of the encoder and the MoE model on (2,2)
+    and of a 6-head model on (1,4); the forward and each tensor-parallel
+    operator on (1,4); a Trainer through a one-rank failure and its
+    resume, checkpointed for the elastic restores; EF all-reduce; GPipe;
+    split-sequence decode."""
     import torch.distributed as dist
     from repro_torch.distributed.grad_compress import (_dequant, _quant,
                                                        ef_allreduce)
@@ -183,11 +348,25 @@ def ranks_four(rank: int, world: int, tmp: str) -> None:
     init(rank, world, tmp)
 
     steps = {}
-    for shape in ((2, 2), (4, 1)):
+    for shape in ((2, 2), (4, 1), (1, 4)):
         mesh = make_test_mesh(shape, device_type="cpu")
         for kind in ("adamw", "adamw8bit", "adafactor"):
-            steps[(shape, kind)] = sharded_step("internlm2-1.8b", kind, mesh)
+            steps[(shape, kind)] = sharded_step(
+                "internlm2-1.8b", kind, mesh, record=kind == "adamw")
     save(tmp, "steps", steps)
+
+    # tensor-parallel steps: the encoder and the MoE model on (2,2), the
+    # 6-head model (attention gathered whole) on (1,4)
+    mesh = make_test_mesh((2, 2), device_type="cpu")
+    tp = {((2, 2), name): sharded_step(name, TP_KINDS.get(name, "adamw"),
+                                       mesh, record=True)
+          for name in ("hubert-xlarge", "qwen2-moe-a2.7b")}
+    mesh = make_test_mesh((1, 4), device_type="cpu")
+    tp[((1, 4), "internlm2-6-heads")] = sharded_step(
+        "internlm2-6-heads", "adamw", mesh, record=True)
+    save(tmp, "tp4", tp)
+    tp_forward(mesh, tmp)
+    tp_operators(mesh, tmp)
 
     # a Trainer on (2,2): straight, then a failure on rank 0 alone at
     # step 3 and a resume from the step-2 checkpoint
@@ -282,7 +461,8 @@ def ranks_four(rank: int, world: int, tmp: str) -> None:
 def ranks_two(rank: int, world: int, tmp: str) -> None:
     """2 ranks on (2,1): the masked encoder in 2 microbatches and the MoE
     model's balance loss, one sharded step each; the 4-rank checkpoint
-    restored onto this mesh."""
+    restored onto this mesh; on (1,2), tensor-parallel steps of the
+    encoder, the MoE model and the Mamba hybrid."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.checkpoint.checkpointer import leaf_paths
     from repro_torch.distributed.sharding import is_dtensor
@@ -304,6 +484,14 @@ def ranks_two(rank: int, world: int, tmp: str) -> None:
     save(tmp, "restore2", dict(params=tree_numpy(tree["params"]),
                                opt=tree_numpy(tree["opt"]),
                                step=extras["step"], dtensor=kinds))
+
+    # tensor-parallel steps over 2 model ranks; Jamba's Mamba mixers
+    # gathered whole, its attention and MoE positions split
+    mesh = make_test_mesh((1, 2), device_type="cpu")
+    save(tmp, "tp2", {((1, 2), name): sharded_step(
+        name, TP_KINDS.get(name, "adamw"), mesh, record=True)
+                      for name in ("hubert-xlarge", "qwen2-moe-a2.7b",
+                                   "jamba-1.5-large-398b")})
     done()
 
 

@@ -30,9 +30,12 @@ reduced MoE, hybrid and xLSTM models must prefill, prefill in chunks and
 decode on the card as on the CPU, and serve as the JAX engine's fixture
 records.  On an NCCL group of one rank, the reduced InternLM2's sharded
 train step (parameters and optimizer state as DTensors) must equal the
-unsharded step bit for bit per optimizer kind, and a sharded trainer's
-checkpoint must restore into an unsharded trainer, and the reverse, bit
-for bit.
+unsharded step bit for bit per optimizer kind (the step computes
+tensor-parallel, at one model rank), a tensor-parallel forward must equal
+the unsharded one, and a sharded trainer's checkpoint must restore into an
+unsharded trainer, and the reverse, bit for bit.  The flash kernel on each
+tensor-parallel rank's heads, as strided views, must equal the whole
+call's heads bit for bit.
 """
 import dataclasses
 
@@ -963,6 +966,69 @@ def test_sharded_step_on_nccl_equals_unsharded(cuda, nccl_mesh, kind):
         {k: float(v) for k, v in plain[2].items()}
     assert _tree_bits_equal(sharded[0], plain[0])
     assert _tree_bits_equal(sharded[1], plain[1])
+
+
+@pytest.mark.parametrize("layer", [(1, 256, 16, 8, 128, True, (2, 4, 8)),
+                                   (2, 200, 16, 16, 80, False, (4,)),
+                                   (1, 128, 4, 2, 32, True, (4,))])
+def test_flash_on_each_model_ranks_heads_equals_whole(cuda, layer):
+    """The flash kernel on each tensor-parallel rank's query heads and
+    the KV heads they read (``layers.kv_heads_of``), passed as strided
+    views of the layer's q, k, v, equals the whole call's heads bit for
+    bit (bf16): InternLM2's 16 / 8 heads at tp 2, 4 and 8, HuBERT's 16 /
+    16 at D = 80, the reduced 4 / 2 at tp 4 (two ranks share a KV head);
+    one launch per rank."""
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention_gqa)
+    from repro_torch.models.layers import kv_heads_of
+    B, S, H, KVH, D, causal, tps = layer
+    q, k, v = _flash_case(cuda, torch.bfloat16, B, S, H, KVH, D)
+    whole = flash_attention_gqa(q, k, v, causal=causal)
+    for tp in tps:
+        hl = H // tp
+        for r in range(tp):
+            qr = q[:, :, r * hl:(r + 1) * hl]
+            kr = kv_heads_of(k, r * hl, hl, H // KVH)
+            vr = kv_heads_of(v, r * hl, hl, H // KVH)
+            assert not qr.is_contiguous()
+            assert kr.untyped_storage().data_ptr() == \
+                k.untyped_storage().data_ptr()
+            n0 = LAUNCHES["flash_attention"]
+            got = flash_attention_gqa(qr, kr, vr, causal=causal)
+            assert LAUNCHES["flash_attention"] == n0 + 1
+            assert torch.equal(got.view(torch.int16), whole[
+                :, :, r * hl:(r + 1) * hl].contiguous().view(torch.int16))
+
+
+def test_tp_forward_on_nccl_equals_unsharded(cuda, nccl_mesh):
+    """``Model.forward`` of the reduced InternLM2 (bf16) through the
+    tensor-parallel backbone on the one-rank NCCL mesh, its parameters
+    DTensors placed by the rules, equals the unsharded forward bit for
+    bit and launches the flash kernel once per layer."""
+    import dataclasses
+    from repro_torch.checkpoint.checkpointer import leaf_paths, rebuild
+    from repro_torch.distributed.sharding import param_sharding, shard_local
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.models import params_from_numpy
+    from repro_torch.models.common import logical_tree, spec_shapes
+    model, _ = _reduced_train("adamw")
+    model = dataclasses.replace(model, rc=model.rc.replace(
+        compute_dtype="bfloat16"))
+    specs = model.specs()
+    psh = dict(leaf_paths(param_sharding(logical_tree(specs),
+                                         spec_shapes(specs), nccl_mesh)))
+    p = params_from_numpy(model.init_numpy(0), cuda)
+    sp = rebuild(p, {k: shard_local(x, psh[k]) for k, x in leaf_paths(p)})
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, model.cfg.vocab, (2, 96))).to(cuda)
+    with torch.no_grad():
+        n0 = LAUNCHES["flash_attention"]
+        got, _ = dataclasses.replace(model, mesh=nccl_mesh).forward(sp,
+                                                                    tokens)
+        assert LAUNCHES["flash_attention"] == n0 + model.cfg.n_layers
+        want, _ = model.forward(p, tokens)
+    assert got.dtype == want.dtype and torch.equal(
+        got.contiguous().view(torch.uint8), want.contiguous().view(torch.uint8))
 
 
 def test_checkpoints_restore_across_sharding_on_nccl(cuda, nccl_mesh,

@@ -65,6 +65,7 @@ from repro_torch.launch import dryrun as TD
 from repro_torch.models import (RunConfig, decode_state_logical,
                                 decode_state_shapes, model_specs,
                                 params_from_numpy)
+from repro_torch.models import model as TM
 from repro_torch.models.common import logical_tree, spec_shapes
 from repro_torch.optim import OptConfig, abstract_opt, init_opt, opt_logical
 from repro_torch.train import make_train_step
@@ -294,6 +295,8 @@ def four(tmp_path_factory):
     ctx = R.start(R.ranks_four, 4, tmp)
     for kind in KINDS:
         _references("internlm2-1.8b", kind)
+    for name in ("hubert-xlarge", "qwen2-moe-a2.7b", "internlm2-6-heads"):
+        _references(name, R.TP_KINDS.get(name, "adamw"))
     R.join(ctx)
     return tmp
 
@@ -305,6 +308,7 @@ def two(four, tmp_path_factory):
     ctx = R.start(R.ranks_two, 2, tmp)
     for name in ("hubert-xlarge", "qwen2-moe-a2.7b"):
         _references(name, "adamw")
+    _references("jamba-1.5-large-398b", "adafactor")
     R.join(ctx)
     return tmp
 
@@ -334,7 +338,8 @@ def _references(name, kind):
                 {p: x.numpy() for p, x in leaf_paths(tp2)},
                 {p: x.numpy() for p, x in leaf_paths(g)})
         arch, micro, _, _ = R.TRAIN_CASES[name]
-        jm = JModel(j_config(arch, True),
+        jm = JModel(dataclasses.replace(j_config(arch, True),
+                                        **R.OVERRIDES.get(name, {})),
                     JRunConfig(microbatches=micro, **R.CHUNKS))
         joc = JOptConfig(kind=kind, **R.OPT)
         jp = jax.tree.map(jnp.asarray, P)
@@ -347,7 +352,7 @@ def _references(name, kind):
 
 
 def _check_step(got, name, kind):
-    met, params = got
+    met, params = got[:2]
     (pmet, pparams, pgrads), (jmet, jparams) = _references(name, kind)
     for k in ("loss", "aux", "grad_norm"):
         assert abs(met[k] - pmet[k]) <= STEP_TOL * max(1.0, abs(pmet[k])), k
@@ -370,13 +375,15 @@ def _check_step(got, name, kind):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4)])
 def test_sharded_step_equals_unsharded_and_jax(four, shape, kind):
     """Reduced InternLM2-1.8B, one step on 4 gloo ranks: parameters and
     optimizer state held as DTensors (FSDP over data, the model axis
     sharding heads, mlp and vocab; AdamW8bit's quantised moments split on
     a last axis that is not a multiple of 256 on (2,2)), the batch a
-    DTensor from the sharded pipeline's placements."""
+    DTensor from the sharded pipeline's placements; on (2,2) and (1,4)
+    the step computes tensor-parallel over the model ranks (GQA on (1,4):
+    one query head a rank, two ranks reading each KV head)."""
     cfg = get_config("internlm2-1.8b", True)
     if shape == (2, 2):
         assert cfg.d_ff % 2 == 0 and (cfg.d_ff // 2) % 256
@@ -390,6 +397,208 @@ def test_sharded_step_masked_encoder_and_moe(two, name):
     the MoE balance loss (means over the global batch) equal the
     unsharded and the JAX steps."""
     _check_step(_load(two, "steps2")[name], name, "adamw")
+
+
+def _tp_case(four, two, shape, name):
+    tmp, key = (four, "tp4") if np.prod(shape) == 4 else (two, "tp2")
+    if name == "internlm2-1.8b":
+        return _load(four, "steps")[(shape, "adamw")]
+    return _load(tmp, key)[(shape, name)]
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("name", ["hubert-xlarge", "qwen2-moe-a2.7b"])
+def test_tp_step_encoder_and_moe(four, two, name, shape):
+    """The encoder (masked, 2 microbatches, non-causal) and the MoE model
+    (experts' d_ff and the shared experts split, the balance loss over
+    the data ranks) computed tensor-parallel over 2 model ranks, alone
+    and beside 2 data ranks, equal the unsharded and the JAX steps.
+
+    The encoder steps with Adafactor (``R.TP_KINDS``): the tensor-
+    parallel products sum their inner dimension in another order, which
+    moves gradients by f32 rounding (up to 5.4e-8 where 1e-7 < |g| <
+    1e-5 on (1,2); 4.7e-9 data-parallel), and AdamW's first step g / (|g|
+    + eps), on gradients clipped by 1/15.5 to a few eps, blows that past
+    1e-6 at 3 of the encoder's 393,856 parameters (up to 1.8e-6); under
+    Adafactor every parameter is within 1.2e-7
+    (``scripts/tp_step_vs_unsharded.py``)."""
+    _check_step(_tp_case(four, two, shape, name), name,
+                R.TP_KINDS.get(name, "adamw"))
+
+
+def _widths(name, tp):
+    """What each rank of a ``tp``-way model axis computes on: query heads,
+    MLP hidden width (the shared experts' for the MoE model), expert
+    hidden width, logits' vocabulary width."""
+    cfg = dataclasses.replace(get_config(R.TRAIN_CASES[name][0], True),
+                              **R.OVERRIDES.get(name, {}))
+    mlp = {cfg.n_shared_experts * cfg.d_ff // tp} if cfg.n_shared_experts \
+        else set()
+    if any(TM._ffn_kind(cfg, j) == "mlp" for j in range(TM.block_period(cfg))):
+        mlp.add(cfg.d_ff // tp)
+    return dict(q_heads={cfg.n_heads // tp}, mlp=mlp,
+                expert={cfg.d_ff // tp} if cfg.n_experts else set(),
+                vocab={TM.padded_vocab(cfg) // tp})
+
+
+@pytest.mark.parametrize("case", [
+    ((1, 4), "internlm2-1.8b"), ((2, 2), "internlm2-1.8b"),
+    ((1, 2), "hubert-xlarge"), ((2, 2), "hubert-xlarge"),
+    ((1, 2), "qwen2-moe-a2.7b"), ((2, 2), "qwen2-moe-a2.7b")])
+def test_tp_ranks_compute_their_shards(four, two, case):
+    """Each rank computed on H / tp query heads, d_ff / tp MLP and expert
+    columns and V_pad / tp logits (read where the model computes), and
+    no parameter sharded over "model" was gathered whole in the step."""
+    shape, name = case
+    probes = _tp_case(four, two, shape, name)[2]
+    assert len(probes) == int(np.prod(shape))
+    want = _widths(name, shape[1])
+    for rec in probes:
+        assert rec["model_gathers"] == 0
+        for k, w in want.items():
+            assert rec[k] == w, (k, rec[k], w)
+
+
+def test_tp_mid_head_split_gathers_attention(four):
+    """6 heads over 4 model ranks: the rules shard ``wq`` / ``wo`` by
+    ``q_dim`` = 192 into 48 columns, a head and a half.  The step gathers
+    those two leaves whole and computes attention whole (all 6 heads on
+    every rank), the MLP and the vocabulary still split; it equals the
+    unsharded and the JAX steps."""
+    got = _load(four, "tp4")[((1, 4), "internlm2-6-heads")]
+    _check_step(got, "internlm2-6-heads", "adamw")
+    cfg = dataclasses.replace(get_config("internlm2-1.8b", True),
+                              **R.OVERRIDES["internlm2-6-heads"])
+    assert cfg.q_dim % 4 == 0 and cfg.n_heads % 4
+    assert TM.whole_along_model(cfg, "blocks/pos0/attn/wq", 4)
+    for rec in got[2]:
+        assert rec["model_gathers"] == 2          # wq and wo
+        assert rec["q_heads"] == {6}
+        assert rec["mlp"] == {cfg.d_ff // 4}
+        assert rec["vocab"] == {TM.padded_vocab(cfg) // 4}
+
+
+def test_tp_mamba_mixers_gathered_whole(two):
+    """Reduced Jamba on (1,2): every Mamba mixer leaf that the rules shard
+    over "model" is gathered whole (no tensor-parallel form yet), while
+    its attention and MoE positions and the vocabulary split; the step
+    (Adafactor: under AdamW even its data-parallel (2,1) step moves three
+    parameters by up to 2.8e-6, past the 1e-6 that the test holds
+    parameters to) equals the unsharded and the JAX steps."""
+    name = "jamba-1.5-large-398b"
+    got = _load(two, "tp2")[((1, 2), name)]
+    _check_step(got, name, R.TP_KINDS[name])
+    cfg = get_config(name, True)
+    specs = model_specs(cfg, RunConfig())
+    mesh = TS.MeshShape(("data", "model"), (1, 2))
+    psh = dict(leaf_paths(TS.param_sharding(logical_tree(specs),
+                                            spec_shapes(specs), mesh)))
+    mixers = [p for p, sp in leaf_paths(specs) if "/mamba/" in p
+              and TS.model_range(sp.shape, psh[p], (0, 0)) is not None]
+    assert len(mixers) >= 6
+    want = _widths(name, 2)
+    for rec in got[2]:
+        assert rec["model_gathers"] == len(mixers)
+        for k, w in want.items():
+            assert rec[k] == w, (k, rec[k], w)
+
+
+@pytest.mark.parametrize("case", [((2, 2), "qwen2-moe-a2.7b"),
+                                  ((1, 2), "qwen2-moe-a2.7b"),
+                                  ((1, 2), "jamba-1.5-large-398b")])
+def test_tp_router_ids_identical_across_model_ranks(four, two, case):
+    """Every routing call (forward and each recomputation in backward)
+    sends each token to the same experts on every model rank of a data
+    coordinate: the router's input is the residual stream, equal bit for
+    bit on the model ranks after each all-reduce."""
+    shape, name = case
+    probes = _tp_case(four, two, shape, name)[2]
+    by_data = {}
+    for rec in probes:
+        by_data.setdefault(rec["coordinate"][0], []).append(rec["routes"])
+    assert len(by_data) == shape[0]
+    for routes in by_data.values():
+        assert len(routes) == shape[1] and len(routes[0]) >= 2
+        for other in routes[1:]:
+            assert len(other) == len(routes[0])
+            for a, b in zip(routes[0], other):
+                assert np.array_equal(a, b)
+
+
+def test_tp_forward_equals_unsharded_and_jax(four):
+    """``Model.forward`` of reduced InternLM2 on (1,4) from DTensor
+    parameters (each rank one query head, a quarter of the MLP and of the
+    vocabulary, the logits gathered) equals the unsharded forward within
+    1e-5 and JAX's within the forward tolerance, on every rank alike."""
+    ranks = _load(four, "tp_forward")
+    model, _, P, b = R.train_setup("internlm2-1.8b", "adamw")
+    with torch.no_grad():
+        want, _ = model.forward(params_from_numpy(P, device="cpu"),
+                                torch.from_numpy(b["tokens"]))
+    jm = JModel(j_config("internlm2-1.8b", True), JRunConfig(**R.CHUNKS))
+    jl, _ = jm.forward(jax.tree.map(jnp.asarray, P),
+                       jnp.asarray(b["tokens"]))
+    w = _widths("internlm2-1.8b", 4)
+    for logits, rec in ranks:
+        assert np.array_equal(logits, ranks[0][0])
+        np.testing.assert_allclose(logits, want.numpy(), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(logits, np.asarray(jl), rtol=5e-5,
+                                   atol=5e-5)
+        assert rec["q_heads"] == w["q_heads"] and rec["mlp"] == w["mlp"]
+        assert rec["model_gathers"] == 0
+
+
+def _plain_ops(d):
+    """Each operator's plain counterpart on rank r's inputs → (output,
+    gradient) as numpy."""
+    n = d["n"]
+    out = {}
+    for r in range(n):
+        x = torch.from_numpy(d["x"]).requires_grad_(True)
+        y = x * torch.from_numpy(d["parts"][r])
+        # every rank's loss term reads x: the gradient is their sum
+        g = sum(d["parts"])
+        out[(r, "copy_to_model")] = (y.detach().numpy(), g)
+        out[(r, "reduce_from_model")] = (sum(d["parts"]), d["x"])
+        up = d["up"]
+        out[(r, "gather_from_model")] = (
+            np.concatenate(list(d["parts"]), -1), up[:, 5 * r:5 * (r + 1)])
+        t = torch.from_numpy(d["table"]).requires_grad_(True)
+        e = t[torch.from_numpy(d["tokens"])]
+        (e * torch.from_numpy(d["up_e"])).sum().backward()
+        out[(r, "vocab_parallel_embed")] = (
+            e.detach().numpy(), t.grad.numpy()[4 * r:4 * (r + 1)])
+    return out
+
+
+@pytest.mark.parametrize("op", ["copy_to_model", "reduce_from_model",
+                                "gather_from_model", "vocab_parallel_embed",
+                                "vocab_parallel_nll"])
+def test_tp_operators_match_plain(four, op):
+    """Each Megatron operator on 4 model ranks, forward and backward,
+    equals its plain counterpart on the whole tensors; the vocabulary-
+    parallel cross-entropy equals JAX's ``cross_entropy`` and its
+    gradient ``jax.grad``'s, each rank's slice of it."""
+    from repro.models.model import cross_entropy as j_xent
+    d = _load(four, "tp_ops")
+    n = d["n"]
+    assert n == 4 and sorted(r for r, _ in d["ranks"]) == list(range(n))
+    if op == "vocab_parallel_nll":
+        z, labels = jnp.asarray(d["z"]), jnp.asarray(d["labels"])
+        want = float(j_xent(z, labels))
+        grad = np.asarray(jax.grad(lambda a: j_xent(a, labels))(z))
+        for r, out in d["ranks"]:
+            y, g = out[op]
+            assert abs(float(y.mean()) - want) <= 1e-6 * abs(want)
+            np.testing.assert_allclose(g, grad[..., 8 * r:8 * (r + 1)],
+                                       rtol=0, atol=1e-7)
+        return
+    plain = _plain_ops(d)
+    for r, out in d["ranks"]:
+        y, g = out[op]
+        wy, wg = plain[(r, op)]
+        np.testing.assert_allclose(y, wy, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(g, wg, rtol=1e-6, atol=1e-6)
 
 
 def test_trainer_failure_on_one_rank_resumes_like_straight_run(four):
