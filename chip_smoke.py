@@ -290,9 +290,19 @@ D1. InternLM2-1.8B trained at full width and depth (24 layers, d_model
     and of one HuBERT-XLarge layer (4 x 1,500, 16 / 16 heads, D = 80,
     non-causal) at tp 4: q's heads and the KV heads they read passed as
     strided views (no copy), each equal bit for bit to the whole call's
-    heads (``D1_HEAD_SLICES``); the phase's wall, both runs'
-    step medians, the checkpoint's GB and its save and restore seconds,
-    peak memory;
+    heads (``D1_HEAD_SLICES``); then the cached passes on the (1, 1)
+    mesh against the unsharded ones, bit for bit (``D1_CACHED``, with
+    deterministic algorithms off: the mLSTM takes a float cumsum): the
+    trained InternLM2-1.8B, xLSTM-350M at full width and depth (24
+    layers, seeded) and the reduced Jamba, each ``prefill`` of a 1 x
+    1,024 (InternLM2) or 1 x 256 prompt and ``prefill_chunked`` (2
+    chunks) under "default" (logits and every cache leaf; one flash
+    launch per attention layer and prefill chunk: 24 and 48 for
+    InternLM2), then 16 greedy ``decode_step``s under "decode" from the
+    prefill's state (tokens, logits, the final state), and the forward of
+    the xLSTM and Jamba; each check's seconds; the phase's wall, both
+    runs' step medians, the checkpoint's GB and its save and restore
+    seconds, peak memory;
 V1. LLaVA-NeXT-34B at full width (60 layers, d_model 7,168, 56 / 8 heads,
     d_ff 20,480, vocab 64,000, 2,880 patches; 34.4 B parameters drawn by
     the streaming initialiser into bf16, 68.8 GB), every earlier model
@@ -515,6 +525,15 @@ D1_PIPE = (8, 4, 2048)
 D1_FWD_SEQ = 1024
 D1_HEAD_SLICES = (((1, 3072, 16, 8, 128, True), (2, 4, 8)),
                   ((E1_BATCH, E1_FRAMES, 16, 16, 80, False), (4,)))
+# the cached passes on the (1, 1) mesh against the unsharded ones: (arch,
+# reduced, prompt tokens, whether the forward too); each prompt is then
+# decoded D1_DECODE greedy steps.  xLSTM-350M (arXiv:2405.04517) at full
+# width and depth, seeded weights, a short prompt: its sLSTM runs a step
+# at a time
+D1_DECODE = 16
+D1_CACHED = (("internlm2-1.8b", False, 1024, False),
+             ("xlstm-350m", False, 256, True),
+             ("jamba-1.5-large-398b", True, 256, True))
 
 # ------------------------------------------------- the chaos rows, R1-R5
 CHAOS_REF_JSON = os.path.join(HERE, "tests", "data",
@@ -2564,6 +2583,9 @@ def main() -> int:
         D1_head_slices_vs_whole=sum(
             r["launches"] for r in ev_out["d1"]["tensor_parallel"][
                 "head_slices"]),
+        D1_cached_prefills=sum(
+            sum(r["flash_launches"].values())
+            for r in ev_out["d1"]["tensor_parallel"]["cached"]),
         V1_prefill=v1["prefill_launches"]["flash_attention"],
         V1_engine=v1["engine"]["launches"]["flash_attention"])
     pa["launches_by_path"] = dict(
@@ -4201,6 +4223,141 @@ def d1_tensor_parallel(torch, np, dev, model, mesh, psh, params):
     return dict(forward=forward, head_slices=slices)
 
 
+def d1_cached(torch, np, dev, model, mesh, params, seq: int,
+              forward: bool) -> dict:
+    """One model's passes on ``mesh`` (a (1, 1) NCCL mesh) from ``params``
+    placed as DTensors by the rules (no copy at one rank) against the
+    unsharded passes on the same tensors, bit for bit: the forward (with
+    ``forward``), ``prefill`` and ``prefill_chunked`` (2 chunks) of a 1 x
+    ``seq`` prompt under "default" (logits and every cache leaf), then
+    ``D1_DECODE`` greedy ``decode_step``s under "decode" from the
+    prefill's state (redistributed on entry: no collective at one rank):
+    tokens, logits and the final state.  Counts the flash launches of
+    each mesh prefill (one per attention layer; two per layer chunked).
+    Returns each check's seconds, mesh and unsharded."""
+    import dataclasses
+    from repro_torch.checkpoint.checkpointer import leaf_paths, rebuild
+    from repro_torch.distributed.sharding import from_local, param_sharding
+    from repro_torch.models.common import logical_tree, spec_shapes
+    from repro_torch.models.model import attn_positions, n_superblocks
+    t0 = time.time()
+    cfg = model.cfg
+    name = cfg.name
+    specs = model.specs()
+    places = dict(leaf_paths(param_sharding(logical_tree(specs),
+                                            spec_shapes(specs), mesh)))
+    sp = rebuild(params, {p: from_local(x, places[p], x.shape)
+                          for p, x in leaf_paths(params)})
+    pre = dataclasses.replace(model, mesh=mesh, act_rules="default")
+    dec = dataclasses.replace(model, mesh=mesh, act_rules="decode")
+    tokens = torch.from_numpy(np.random.default_rng(seq).integers(
+        0, cfg.vocab, (1, seq))).to(dev)
+    max_seq = seq + D1_DECODE
+    per_pass = len(attn_positions(cfg)) * n_superblocks(cfg)
+    seconds, launches = {}, {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[key] = time.time() - t
+        launches[key] = launch_counts()["flash_attention"]
+        return out
+
+    def same(what, got, want):
+        if not (_bits_equal(got, want) and torch.isfinite(got).all()):
+            fail(f"D1: {name}'s {what} on the (1, 1) mesh differs from the "
+                 "unsharded pass's (max |diff| "
+                 f"{(got.float() - want.float()).abs().max().item():.3g})")
+
+    def same_state(what, got, want):
+        bad = _leaves_equal(got, want)
+        if bad:
+            fail(f"D1: {name}'s state after {what} on the (1, 1) mesh "
+                 f"differs from the unsharded pass's at {bad[:5]}")
+
+    with torch.no_grad():
+        if forward:
+            got = timed("forward", lambda: pre.forward(sp, tokens)[0])
+            want = timed("forward_unsharded",
+                         lambda: model.forward(params, tokens)[0])
+            same("forward", got, want)
+            del got, want
+        lg, st = timed("prefill", lambda: pre.prefill(sp, tokens,
+                                                      max_seq=max_seq))
+        wl, ws = timed("prefill_unsharded", lambda: model.prefill(
+            params, tokens, max_seq=max_seq))
+        same("prefill logits", lg, wl)
+        same_state("prefill", st, ws)
+        got = timed("prefill_chunked", lambda: pre.prefill_chunked(
+            sp, tokens, n_chunks=2, max_seq=max_seq))
+        want = timed("prefill_chunked_unsharded", lambda: (
+            model.prefill_chunked(params, tokens, n_chunks=2,
+                                  max_seq=max_seq)))
+        same("chunked prefill logits", got[0], want[0])
+        same_state("the chunked prefill", got[1], want[1])
+        del got, want
+        for key, n in (("prefill", per_pass), ("prefill_chunked",
+                                               2 * per_pass)):
+            for k in (key, key + "_unsharded"):
+                if launches[k] != n:
+                    fail(f"D1: {name}'s {k} launched the flash kernel "
+                         f"{launches[k]} times, not {n}")
+        nxt, wnxt = lg[:, -1:].argmax(-1), wl[:, -1:].argmax(-1)
+        tokens_out = []
+
+        def decode():
+            nonlocal st, ws, nxt, wnxt
+            for step in range(D1_DECODE):
+                kv = torch.full((1,), seq + step, device=dev)
+                lg2, st = dec.decode_step(sp, st, nxt, kv)
+                wl2, ws = model.decode_step(params, ws, wnxt, kv)
+                same(f"decode step {step}'s logits", lg2, wl2)
+                nxt, wnxt = lg2[:, -1:].argmax(-1), wl2[:, -1:].argmax(-1)
+                if not torch.equal(nxt, wnxt):
+                    fail(f"D1: {name}'s greedy token at decode step {step} "
+                         "differs from the unsharded one's")
+                tokens_out.append(int(nxt[0, 0]))
+        timed("decode_both", decode)
+        same_state(f"{D1_DECODE} decode steps", st, ws)
+    del sp, st, ws, lg, wl
+    return dict(arch=name, seq=seq, seconds=seconds,
+                wall_s=time.time() - t0,
+                flash_launches={k: launches[k]
+                                for k in ("prefill", "prefill_chunked")},
+                tokens=tokens_out)
+
+
+def d1_cached_phase(torch, np, dev, model, mesh, params) -> list:
+    """D1's cached-pass checks (``D1_CACHED``): :func:`d1_cached` of the
+    trained InternLM2-1.8B weights, then of xLSTM-350M and the reduced
+    Jamba drawn from seeds; prints each check's seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, RunConfig
+    out = []
+    for arch, reduced, seq, forward in D1_CACHED:
+        t = time.time()
+        if arch == model.cfg.name and not reduced:
+            m, p = model, params
+        else:
+            m = Model(get_config(arch, reduced), RunConfig())
+            p = m.init_on_device(0, dev)
+        drawn = time.time() - t
+        r = d1_cached(torch, np, dev, m, mesh, p, seq, forward)
+        r["draw_s"] = drawn
+        out.append(r)
+        del p
+        torch.cuda.empty_cache()
+        print(f"{arch}{' (reduced)' if reduced else ''} on the (1, 1) mesh "
+              f"vs unsharded, bit for bit: " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in r["seconds"].items())
+              + f"; flash launches {r['flash_launches']}; weights drawn in "
+              f"{drawn:.1f} s; {r['wall_s']:.1f} s with the comparisons")
+    return out
+
+
 def d1_phase(torch, np, dev):
     """D1: InternLM2-1.8B at full width trained through the sharded
     (tensor-parallel) trainer on one NCCL rank and through the unsharded
@@ -4320,6 +4477,14 @@ def d1_phase(torch, np, dev):
                                 want["params"])
         marks.append(("the tensor-parallel forward and head slices",
                       time.time()))
+        # the mLSTM's chunkwise prefill takes a float cumsum, which
+        # deterministic mode refuses on the card; both sides of each
+        # comparison launch the same kernels on the same inputs
+        torch.use_deterministic_algorithms(False)
+        tp["cached"] = d1_cached_phase(torch, np, dev, model, mesh,
+                                       want["params"])
+        torch.use_deterministic_algorithms(True)
+        marks.append(("the cached passes on the mesh", time.time()))
         del want
         ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
                          for d, _, fs in os.walk(os.path.join(root,

@@ -326,6 +326,23 @@ def with_logical_constraint(x: torch.Tensor,
         logical, mesh, ACT_RULES[rule_set], tuple(x.shape)))
 
 
+def decode_state_sharding(cfg, batch: int, max_seq: int, mesh,
+                          act_rules: str = "decode") -> PyTree:
+    """The decode state's tree of :class:`Sharding` (``{pos: {name:
+    Sharding}}``, :func:`..models.model.decode_state_shapes`' tree for a
+    global ``batch`` and ``max_seq``): each leaf's
+    ``decode_state_logical`` axes under ``ACT_RULES[act_rules]``, as the
+    JAX dry-run's ``build_cell`` places the state it hands to (decode)
+    or takes from (prefill) the step."""
+    from ..models.model import decode_state_logical, decode_state_shapes
+    rules = ACT_RULES[act_rules]
+    lg = decode_state_logical(cfg)
+    return {pos: {name: Sharding(mesh, logical_to_placements(
+        lg[pos][name], mesh, rules, shape))
+        for name, (shape, _) in leaves.items()}
+        for pos, leaves in decode_state_shapes(cfg, batch, max_seq).items()}
+
+
 def dp_axis_names(mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh_shape(mesh).axis_names)
 
@@ -423,8 +440,9 @@ def gather(x: torch.Tensor) -> torch.Tensor:
 
 def gather_data(x: torch.Tensor) -> torch.Tensor:
     """This rank's part of a DTensor along the model axis, whole along
-    every other mesh axis: the data axes redistributed to ``Replicate``,
-    the placement on ``"model"`` kept, then ``to_local``; a plain tensor
+    every other mesh axis: the data axes redistributed to ``Replicate``
+    (no collective over an axis of one rank, whose shard is whole), the
+    placement on ``"model"`` kept, then ``to_local``; a plain tensor
     unchanged."""
     if not is_dtensor(x):
         return x
@@ -432,7 +450,8 @@ def gather_data(x: torch.Tensor) -> torch.Tensor:
     mesh = x.device_mesh
     pls = tuple(pl if name == MODEL_AXIS else Replicate()
                 for name, pl in zip(mesh.mesh_dim_names, x.placements))
-    if pls != tuple(x.placements):
+    if any(a != b and mesh.shape[m] > 1
+           for m, (a, b) in enumerate(zip(pls, x.placements))):
         x = x.redistribute(mesh, pls)
     return x.to_local()
 

@@ -22,8 +22,22 @@ tensors, so the collectives are written out, as Megatron-LM writes them:
   through it: the loss does not depend on it), the sum of the
   exponentials by :func:`reduce_from_model`, and the target's logit taken
   on the rank that owns it and summed likewise;
-* :func:`gather_from_model`: an all-gather along the last dimension (the
-  full logits a forward returns); its backward takes the rank's slice.
+* :func:`gather_from_model`: an all-gather along a dimension (the last
+  by default: the full logits a forward returns; a recurrent state's
+  channels or heads, which the rules replicate over the model ranks);
+  its backward takes the rank's slice;
+* :func:`paired_halves`: a rank's contiguous column shard of a fused
+  ``[x | z]`` in-projection (``[d, 2 n]``, the Mamba ``in_proj``, the
+  mLSTM ``up_proj``) exchanged into the rank's matching ``x`` and ``z``
+  column blocks ``[r n/tp, (r + 1) n/tp)`` by one all-to-all
+  (:func:`paired_plan`: at tp 2, rank 0's shard is all of x and rank 1's
+  all of z); its backward is the inverse exchange.  The stored layout
+  stays the JAX one, so checkpoints do not depend on tp;
+* :func:`reduce_scatter_to_model`: the partial products of a
+  row-parallel weight summed over the model ranks, each rank keeping its
+  block of a dimension (the mLSTM's ``wq``, ``wk``, ``wv``, ``w_i`` and
+  ``w_f``, reduced onto the rank's heads): one all-to-all and the sum of
+  the received blocks in rank order; its backward is an all-gather.
 
 Each operator is the identity, with no collective, when it is given no
 group or a group of one rank, so the unsharded model runs the same code
@@ -95,20 +109,122 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+def _all_gather(x: torch.Tensor, group, size: int, dim: int
+                ) -> torch.Tensor:
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _all_to_all(x: torch.Tensor, group, out_rows: int, out_splits,
+                in_splits) -> torch.Tensor:
+    """``all_to_all_single`` over dimension 0 of ``x``: ``in_splits[s]``
+    rows to rank s, ``out_splits[r]`` rows from rank r, in rank order."""
+    import torch.distributed as dist
+    out = x.new_empty((out_rows,) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x.contiguous(), list(out_splits),
+                           list(in_splits), group=group)
+    return out
+
+
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, size, rank):
-        import torch.distributed as dist
-        ctx.rank, ctx.n = rank, x.shape[-1]
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(size)]
-        dist.all_gather(parts, x, group=group)
-        return torch.cat(parts, dim=-1)
+    def forward(ctx, x, group, size, rank, dim):
+        ctx.rank, ctx.n, ctx.dim = rank, x.shape[dim], dim
+        return _all_gather(x, group, size, dim)
 
     @staticmethod
     def backward(ctx, g):
-        n = ctx.n
-        return g[..., ctx.rank * n:(ctx.rank + 1) * n], None, None, None
+        return (g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None,
+                None)
+
+
+def _scatter_sum(x: torch.Tensor, group, size: int, dim: int
+                 ) -> torch.Tensor:
+    """Block r of ``x`` along ``dim`` summed over the ranks, on rank r
+    (the received blocks added in rank order)."""
+    xt = x.movedim(dim, 0)
+    n = xt.shape[0] // size
+    got = _all_to_all(xt, group, xt.shape[0], [n] * size, [n] * size)
+    acc = got[:n]
+    for r in range(1, size):
+        acc = acc + got[r * n:(r + 1) * n]
+    return acc.movedim(0, dim)
+
+
+class _ReduceScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, dim):
+        ctx.group, ctx.size, ctx.dim = group, size, dim
+        return _scatter_sum(x, group, size, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.size, ctx.dim), None, None, None
+
+
+def paired_plan(width: int, tp: int) -> list:
+    """The exchange of :func:`paired_halves` for a fused leaf of ``width``
+    = 2 n columns ``[x | z]`` split into ``tp`` contiguous shards of ``w =
+    width / tp``: ``plan[r][s]`` lists the column ranges ``(lo, hi)`` of
+    rank r's shard, local to it, that rank s needs (the intersections of
+    ``[r w, (r + 1) w)`` with rank s's x block ``[s u, (s + 1) u)`` and z
+    block ``[n + s u, n + (s + 1) u)``, ``u = n / tp``), x's part first.
+    Rank s receives, in rank order, exactly its x block then its z
+    block."""
+    n = width // 2
+    if width % 2 or n % tp:
+        raise ValueError(f"a fused leaf of {width} columns has no paired "
+                         f"halves over {tp} ranks")
+    w, u = width // tp, n // tp
+    plan = []
+    for r in range(tp):
+        lo, hi = r * w, (r + 1) * w
+        row = []
+        for s in range(tp):
+            parts = []
+            for a, b in ((s * u, (s + 1) * u), (n + s * u, n + (s + 1) * u)):
+                a, b = max(a, lo), min(b, hi)
+                if a < b:
+                    parts.append((a - lo, b - lo))
+            row.append(parts)
+        plan.append(row)
+    return plan
+
+
+def _rows(parts) -> int:
+    return sum(b - a for a, b in parts)
+
+
+class _PairedHalves(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, group, size, rank):
+        plan = paired_plan(w.shape[-1] * size, size)
+        ctx.group, ctx.plan, ctx.rank = group, plan, rank
+        wt = w.t()
+        send = torch.cat([wt[a:b] for parts in plan[rank]
+                          for a, b in parts])
+        out_splits = [_rows(plan[r][rank]) for r in range(size)]
+        got = _all_to_all(send, group, sum(out_splits), out_splits,
+                          [_rows(parts) for parts in plan[rank]])
+        return got.t().contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        plan, rank = ctx.plan, ctx.rank
+        size = len(plan)
+        in_splits = [_rows(parts) for parts in plan[rank]]
+        got = _all_to_all(g.t(), ctx.group, sum(in_splits), in_splits,
+                          [_rows(plan[r][rank]) for r in range(size)])
+        gw = torch.empty_like(got)
+        i = 0
+        for parts in plan[rank]:
+            for a, b in parts:
+                gw[a:b] = got[i:i + b - a]
+                i += b - a
+        return gw.t(), None, None, None
 
 
 def copy_to_model(x: torch.Tensor, mg: Optional[ModelGroup]
@@ -124,13 +240,39 @@ def reduce_from_model(x: torch.Tensor, mg: Optional[ModelGroup]
     return _ReduceFromModel.apply(x, mg.group) if _active(mg) else x
 
 
-def gather_from_model(x: torch.Tensor, mg: Optional[ModelGroup]
-                      ) -> torch.Tensor:
-    """The model ranks' ``x`` concatenated along the last dimension, in
-    rank order; backward, this rank's slice of the gradient."""
+def gather_from_model(x: torch.Tensor, mg: Optional[ModelGroup],
+                      dim: int = -1) -> torch.Tensor:
+    """The model ranks' ``x`` concatenated along ``dim``, in rank order;
+    backward, this rank's slice of the gradient."""
     if not _active(mg):
         return x
-    return _GatherFromModel.apply(x, mg.group, mg.size, mg.rank)
+    return _GatherFromModel.apply(x, mg.group, mg.size, mg.rank,
+                                  dim % x.dim())
+
+
+def reduce_scatter_to_model(x: torch.Tensor, mg: Optional[ModelGroup],
+                            dim: int = -1) -> torch.Tensor:
+    """``x`` summed over the model ranks, this rank's block r of ``size /
+    tp`` along ``dim`` kept; backward, the gradient all-gathered along
+    ``dim``."""
+    if not _active(mg):
+        return x
+    if x.shape[dim] % mg.size:
+        raise ValueError(f"a dimension of {x.shape[dim]} does not split "
+                         f"over {mg.size} model ranks")
+    return _ReduceScatterToModel.apply(x, mg.group, mg.size, dim % x.dim())
+
+
+def paired_halves(w: torch.Tensor, mg: Optional[ModelGroup]
+                  ) -> torch.Tensor:
+    """This rank's column shard ``[d, 2 n / tp]`` of a fused ``[x | z]``
+    leaf ``[d, 2 n]`` → the rank's x columns ``[r n/tp, (r + 1) n/tp)``
+    followed by its z columns ``[n + r n/tp, ...)``, ``[d, 2 n / tp]``
+    (one all-to-all, :func:`paired_plan`, moving at most the rank's own
+    shard); backward, the inverse exchange of the gradient."""
+    if not _active(mg):
+        return w
+    return _PairedHalves.apply(w, mg.group, mg.size, mg.rank)
 
 
 def vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor,

@@ -14,6 +14,7 @@ MLP also take a model rank's shard of their weights (``mg``, a
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -160,18 +161,35 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise ValueError(f"prefill_attention: no implementation for {q.device}")
 
 
+@dataclasses.dataclass(frozen=True)
+class CacheSplit:
+    """How a rank's part of a decode KV cache sits in the whole:
+    ``seq_start``, the global position of its first row, and the process
+    groups (of more than one rank each) whose ranks hold the other parts
+    of the sequence (``seq_groups``) and of the head dimension
+    (``dim_groups``, this rank's part of it ``dim``)."""
+    seq_start: int
+    seq_groups: tuple
+    dim_groups: tuple
+    dim: slice
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_len: torch.Tensor, *,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     split: Optional[CacheSplit] = None) -> torch.Tensor:
     """Single-step decode attention (grouped GQA, cache never repeated).
 
     q: [B, 1, Hq, D]; caches: [B, S, Hkv, D]; kv_len: [B] valid lengths.
-    The caches may be DTensors split along the sequence (the
-    ``decode_long`` rules' ``kv_seq``): :func:`_decode_attention_seq_split`.
+    The caches may be this rank's part of a cache split over ranks
+    (``split``; or DTensors, whose placements say it):
+    :func:`_decode_attention_split`.
     """
     if is_dtensor(k_cache):
-        return _decode_attention_seq_split(q, k_cache, v_cache, kv_len,
-                                           scale)
+        k_cache, v_cache, split = _split_of(k_cache, v_cache)
+    if split is not None:
+        return _decode_attention_split(q, k_cache, v_cache, kv_len, scale,
+                                       split)
     B, _, Hq, D = q.shape
     _, S, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -187,49 +205,70 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, 1, Hq, D).to(q.dtype)
 
 
-def _decode_attention_seq_split(q, k_cache, v_cache, kv_len, scale):
-    """:func:`decode_attention` over caches split along the sequence
-    (dimension 1) over mesh dimensions, the same on every rank: each rank
-    takes the softmax's partial (max, sum, unnormalised output) over its
-    positions, and the partials combine over each splitting mesh
-    dimension in turn (flash-decoding's split-K, which is what the JAX
-    partitioner makes of the sharded cache)."""
-    import torch.distributed as dist
+def _split_of(k_cache, v_cache):
+    """(local k, local v, :class:`CacheSplit`) of DTensor caches [B, S,
+    Hkv, D] split along the batch (q and kv_len are then this rank's
+    rows), the sequence or the head dimension over mesh dimensions."""
     pls = k_cache.placements
     if v_cache.placements != pls or any(
-            pl.is_shard() and pl.dim != 1 for pl in pls):
-        raise ValueError("decode_attention: the caches must be split along "
-                         "the sequence alone, alike")
+            pl.is_shard() and pl.dim == 2 for pl in pls):
+        raise ValueError("decode_attention: the caches must be placed "
+                         "alike, and not split over their KV heads")
     mesh = k_cache.device_mesh
-    off = local_slices(k_cache.shape, Sharding(mesh, pls))[1].start
-    k, v = k_cache.to_local(), v_cache.to_local()
+    sl = local_slices(k_cache.shape, Sharding(mesh, pls))
+    groups = {1: [], 3: []}
+    for m, pl in enumerate(pls):
+        if pl.is_shard() and pl.dim in groups and mesh.shape[m] > 1:
+            groups[pl.dim].append(mesh.get_group(m))
+    split = (CacheSplit(sl[1].start, tuple(groups[1]), tuple(groups[3]),
+                        sl[3]) if groups[1] or groups[3] else None)
+    return k_cache.to_local(), v_cache.to_local(), split
+
+
+def _decode_attention_split(q, k, v, kv_len, scale, split: CacheSplit):
+    """:func:`decode_attention` over this rank's part ``k``, ``v`` [B, S_r,
+    Hkv, D_r] of caches split along the sequence and the head dimension
+    (``split``; q [B, 1, Hq, D] whole): the scores' partial sums over the
+    rank's part of the head dimension summed over ``dim_groups``; the
+    softmax's partial (max, sum, unnormalised output) over the rank's
+    positions, the partials combined over each of ``seq_groups`` in turn
+    (flash-decoding's split-K, which is what the JAX partitioner makes of
+    a cache sharded along the sequence); the output's parts of the head
+    dimension gathered over ``dim_groups``."""
+    import torch.distributed as dist
     B, _, Hq, D = q.shape
     _, S, Hkv, _ = k.shape
     G = Hq // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    qg = q.reshape(B, Hkv, G, D)
-    s = torch.einsum("bcgd,bscd->bcgs", qg.float(), k.float()) * scale
-    pos = off + torch.arange(S, device=q.device)
+    qg = q[..., split.dim].reshape(B, Hkv, G, -1)
+    s = torch.einsum("bcgd,bscd->bcgs", qg.float(), k.float())
+    for group in split.dim_groups:
+        s = s.contiguous()
+        dist.all_reduce(s, group=group)
+    s = s * scale
+    pos = split.seq_start + torch.arange(S, device=q.device)
     mask = (pos[None, :] < kv_len.to(q.device)[:, None])[:, None, None, :]
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bcgs,bscd->bcgd", p, v.float())
-    for dim, pl in enumerate(pls):
-        if not pl.is_shard():
-            continue
-        group = mesh.get_group(dim)
+    for group in split.seq_groups:
         n = dist.get_world_size(group)
         ms, ls, os_ = ([torch.empty_like(t) for _ in range(n)]
                        for t in (m, l, o))
         dist.all_gather(ms, m, group=group)
         dist.all_gather(ls, l, group=group)
-        dist.all_gather(os_, o, group=group)
+        dist.all_gather(os_, o.contiguous(), group=group)
         m = torch.stack(ms).amax(0)
         w = [torch.exp(mi - m) for mi in ms]
         l = sum(wi * li for wi, li in zip(w, ls))
         o = sum(wi * oi for wi, oi in zip(w, os_))
+    for group in split.dim_groups:
+        n = dist.get_world_size(group)
+        parts = [torch.empty_like(o) for _ in range(n)]
+        dist.all_gather(parts, o.contiguous(), group=group)
+        o = torch.cat(parts, dim=-1)
     return (o / l).reshape(B, 1, Hq, D).to(q.dtype)
 
 
@@ -267,7 +306,8 @@ def kv_heads_of(k: torch.Tensor, h0: int, n: int, group: int
 
 
 def attention_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                  positions: torch.Tensor, mg: Optional[ModelGroup] = None
+                  positions: torch.Tensor, mg: Optional[ModelGroup] = None,
+                  all_kv: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, S, d] → q [B, S, H, D], k and v [B, S, KVH, D] (RoPE on q,
     k; RMSNorm on them first where the config has ``qk_norm``).  The head
@@ -277,7 +317,9 @@ def attention_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
     replicated ``wk``, ``wv`` (and ``q_norm``) are then used in part on
     each rank: ``copy_to_model`` on k and v before their heads are taken
     (and on ``q_norm``, and on x into ``wq``) sums their gradients over
-    the model ranks, so each rank ends with the whole gradient."""
+    the model ranks, so each rank ends with the whole gradient.
+    ``all_kv``: k and v keep every KV head (the cached passes, which store
+    them all)."""
     B, S, _ = x.shape
     D = cfg.head_dim
     split = TP.splits(mg, p["wq"].shape[-1], cfg.q_dim)
@@ -291,7 +333,7 @@ def attention_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if split:
+    if split and not all_kv:
         n = q.shape[2]
         group = cfg.n_heads // cfg.n_kv_heads
         k = kv_heads_of(TP.copy_to_model(k, mg), mg.rank * n, n, group)

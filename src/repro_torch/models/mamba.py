@@ -13,6 +13,16 @@ exist at once.  Inside a chunk the JAX package runs
 = (a1 a2, a2 b1 + b2)`` runs as a Hillis-Steele scan over the chunk's
 steps (log2 Q whole-tensor passes), whose f32 sums are taken in another
 tree order than XLA's.
+
+Tensor-parallel (``mg``, where the leaves arrive as this model rank's
+``"mlp"`` shards): ``in_proj`` through
+:func:`..distributed.tensor_parallel.paired_halves` (the rank's x and z
+channels), the conv, ``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and the
+scan on the rank's ``d_inner / tp`` channels, ``x_proj`` row-parallel
+(its small ``dt_rank + 2 d_state`` projection summed over the model
+ranks, and its gradient likewise, since every rank's channels read all
+of it), ``out_proj`` row-parallel.  The decode state is then the rank's
+channel slice.
 """
 from __future__ import annotations
 
@@ -21,6 +31,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as TP
+from ..distributed.tensor_parallel import ModelGroup
 from .common import Spec
 from .config import ModelConfig
 
@@ -83,16 +95,23 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def mamba_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                 scan_chunk: int = 128,
                 state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                return_state: bool = False):
+                return_state: bool = False, mg: Optional[ModelGroup] = None):
     """x: [B, S, d_model] → [B, S, d_model] (+ the updated decode state
-    ``(conv_state, ssm_state)`` with ``return_state``)."""
+    ``(conv_state, ssm_state)`` with ``return_state``); on this model
+    rank's channels where the leaves are its shards (the module's
+    docstring; the state is then the rank's channels too)."""
     mc = cfg.mamba
     B, S, d = x.shape
-    d_in = mc.expand * d
+    d_in = p["out_proj"].shape[0]          # this rank's channels
+    split = TP.splits(mg, d_in, mc.expand * d)
     dtr = mc.resolved_dt_rank(d)
     N = mc.d_state
 
-    xz = x @ p["in_proj"]
+    if split:
+        x = TP.copy_to_model(x, mg)
+        xz = x @ TP.paired_halves(p["in_proj"], mg)
+    else:
+        xz = x @ p["in_proj"]
     xr, z = xz.split(d_in, dim=-1)
     conv_state = state[0] if state is not None else None
     xr, new_conv_state = _causal_conv(xr, p["conv_w"], p["conv_b"],
@@ -100,6 +119,8 @@ def mamba_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     xr = F.silu(xr)
 
     proj = xr @ p["x_proj"]
+    if split:
+        proj = TP.copy_to_model(TP.reduce_from_model(proj, mg), mg)
     dt_r, Bc, Cc = proj.split([dtr, N, N], dim=-1)
     dt = F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"])      # [B,S,d_in]
     A = -torch.exp(p["A_log"].float())                         # [d_in, N]
@@ -141,6 +162,8 @@ def mamba_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
     y = (y * F.silu(z.float())).to(x.dtype)
     out = y @ p["out_proj"]
+    if split:
+        out = TP.reduce_from_model(out, mg)
     if return_state:
         return out, (new_conv_state, states_h)
     return out

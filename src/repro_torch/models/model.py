@@ -42,20 +42,39 @@ recurrent layers run from a zero state and write none (the in-place
 state writes of the inference passes stay off the graph); cross-entropy
 is taken per sequence chunk, each chunk recomputed in backward.
 
-On a ``DeviceMesh`` with a ``"model"`` dimension the full-sequence passes
-(``backbone``, ``forward``, ``loss``) compute tensor-parallel where a
-weight arrives as this model rank's shard (:meth:`Model.local_params`,
-the sharded train step): attention on the rank's heads (``wq``
-column-parallel, ``wo`` row-parallel, the flash kernel launched on the
-rank's heads on the card), the SwiGLU MLP and the MoE experts on the
-rank's ``d_ff`` columns, and the embedding, the logits and the
+On a ``DeviceMesh`` with a ``"model"`` dimension every pass but the paged
+decode step computes tensor-parallel where a weight arrives as this
+model rank's shard (:meth:`Model.local_params`, the sharded train step):
+attention on the rank's heads (``wq`` column-parallel, ``wo``
+row-parallel, the flash kernel launched on the rank's heads on the card),
+the SwiGLU MLP and the MoE experts on the rank's ``d_ff`` columns, the
+Mamba, mLSTM and sLSTM mixers on the rank's channels or heads
+(:mod:`.mamba`, :mod:`.xlstm`), and the embedding, the logits and the
 cross-entropy on the rank's rows of the (padded) vocabulary
 (:mod:`..distributed.tensor_parallel`).  A weight that arrives whole is
-computed with whole, with no collective: the Mamba and xLSTM mixers
-(:func:`whole_along_model`), attention whose heads do not split evenly
-over the model ranks, and every weight of the unsharded model, which so
-runs the same code.  ``prefill``, ``prefill_chunked`` and the decode
-steps take whole weights.
+computed with whole, with no collective: a layer whose heads or channels
+do not split evenly over the model ranks (:func:`whole_along_model`),
+and every weight of the unsharded model, which so runs the same code.
+
+The cached passes on such a mesh (``prefill``, ``prefill_chunked``,
+``decode_step``: :meth:`Model._cache_pass`) take this rank's rows of the
+batch and keep the decode state as DTensors placed by
+``decode_state_logical`` under ``act_rules``
+(:func:`..distributed.sharding.decode_state_sharding`): under
+``"default"`` the KV cache is split on its head dimension over
+``"model"`` and the Mamba state on its channels; under ``"decode"`` the
+cache is split along the sequence over ``"model"`` (the decode attention
+combines each rank's softmax partials, :func:`.layers.decode_attention`)
+and the recurrent states are replicated, each rank updating its part and
+all-gathering it (:func:`_fit_state`).  A state placed otherwise is
+redistributed once on entry (DTensor's ``redistribute``: on NCCL one
+all-to-all where a split moves from one dimension to another).  Between
+passes a rank keeps only its shard of a KV cache.  Within a prefill it
+computes the K/V of every KV head of its rows (``wk``, ``wv`` are
+replicated), and a chunked prefill whose cache does not hold the rank's
+KV heads whole keeps them for the prompt's positions until the pass ends
+(:meth:`KVSlot.prefix`; every KV head where the query heads do not split
+over the model ranks).
 """
 from __future__ import annotations
 
@@ -73,10 +92,12 @@ from . import xlstm as X
 from .._device import resolve_device
 from ..checkpoint.checkpointer import leaf_paths, rebuild
 from ..distributed import tensor_parallel as TP
-from ..distributed.sharding import (MODEL_AXIS, Sharding, batch_axes,
-                                    gather, gather_data, is_device_mesh,
-                                    is_dtensor, mesh_shape, model_group,
-                                    model_range, sum_over,
+from ..distributed.sharding import (MODEL_AXIS, Sharding, axes_index,
+                                    batch_axes, decode_state_sharding,
+                                    from_local, gather, gather_data,
+                                    is_device_mesh, is_dtensor, local_slices,
+                                    mesh_shape, model_group, model_range,
+                                    sum_over,
                                     with_logical_constraint)
 from .common import Spec, count_params, init_params_numpy, tree_map
 from .config import ModelConfig, RunConfig
@@ -183,25 +204,27 @@ def model_specs(cfg: ModelConfig, rc: RunConfig) -> dict:
 
 #: logical axes whose model shard a layer computes on
 TP_AXES = ("q_heads", "mlp", "vocab")
-RECURRENT_MIXERS = ("mamba", "mlstm", "slstm")
+#: mixers computed on a model rank's heads
+HEADED_MIXERS = ("attn", "mlstm", "slstm")
 
 
 def whole_along_model(cfg: ModelConfig, path: str, tp: int
                       ) -> Optional[str]:
     """Why the leaf at ``path`` (``"blocks/pos0/attn/wq"``) is gathered
     whole along a model axis of ``tp`` ranks for the compute, or None
-    where its layer has a tensor-parallel form: the Mamba and xLSTM
-    mixers have none yet (their fused ``[x | z]`` in-projections do not
-    split into matching halves by contiguous shards: ROADMAP A12d), and
-    attention whose ``n_heads`` do not split evenly over ``tp`` (a ``wq``
-    sharded on ``q_dim`` would split mid-head)."""
+    where its layer computes on its model shard: attention, the mLSTM and
+    the sLSTM whose ``n_heads`` do not split evenly over ``tp`` (a shard
+    would end mid-head; the reduced xLSTM's 2 heads over 4 ranks), and
+    the Mamba mixer whose ``d_inner`` channels do not (its fused ``[x |
+    z]`` in-projection has no paired halves then)."""
     parts = path.split("/")
     if parts[0] == "blocks" and len(parts) > 2:
-        if parts[2] in RECURRENT_MIXERS:
-            return f"the {parts[2]} mixer has no tensor-parallel form"
-        if parts[2] == "attn" and cfg.n_heads % tp:
+        if parts[2] in HEADED_MIXERS and cfg.n_heads % tp:
             return (f"{cfg.n_heads} heads do not split over {tp} model "
                     "ranks")
+        if parts[2] == "mamba" and (cfg.mamba.expand * cfg.d_model) % tp:
+            return (f"{cfg.mamba.expand * cfg.d_model} Mamba channels do "
+                    f"not split over {tp} model ranks")
     return None
 
 
@@ -269,11 +292,17 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     """Zero decode state for :meth:`Model.decode_step` on ``device`` (the
     card unless ``"cpu"`` is asked for; raises without a card); the
     xLSTM stabilisers ``m`` start at ``-1e30``, not 0."""
-    device = resolve_device(device)
+    return _zero_state(decode_state_shapes(cfg, batch, max_seq, dtype),
+                       resolve_device(device))
+
+
+def _zero_state(shapes: dict, device) -> dict:
+    """The zero decode state of ``shapes`` (``{pos: {name: (shape,
+    dtype)}}``: :func:`decode_state_shapes`' tree, or a rank's part of it)
+    on ``device``, the xLSTM stabilisers ``m`` at ``-1e30``."""
     state = {pos: {name: torch.zeros(shape, dtype=dt, device=device)
                    for name, (shape, dt) in leaves.items()}
-             for pos, leaves in decode_state_shapes(cfg, batch, max_seq,
-                                                    dtype).items()}
+             for pos, leaves in shapes.items()}
     for st in state.values():
         if "m" in st and ("C" in st or "h" in st):
             st["m"].fill_(X.NEG_INF)
@@ -305,6 +334,54 @@ def decode_state_logical(cfg: ModelConfig) -> dict:
     return out
 
 
+#: the dimension of a recurrent state leaf (one superblock's slice: no
+#: "layers" dimension) that holds its layer's channels or heads
+STATE_SPLIT_DIM = {"conv": -1, "ssm": 1, "C": 1, "n": 1, "m": 1, "c": 1,
+                   "h": 1}
+#: each recurrent mixer's output projection, whose rows are the channels
+#: the layer computes on
+_OUT_PROJ = {"mamba": "out_proj", "mlstm": "down_proj", "slstm": "out_proj"}
+
+
+def _mixer_channels(cfg: ModelConfig, mk: str) -> int:
+    return {"mamba": lambda: cfg.mamba.expand * cfg.d_model,
+            "mlstm": lambda: 2 * cfg.d_model,
+            "slstm": lambda: cfg.d_model}[mk]()
+
+
+def _fit_state(cfg: ModelConfig, mk: str, p: dict, state: dict,
+               mg) -> Tuple[dict, Callable[[dict], dict]]:
+    """A recurrent layer's state slice as the layer computes on it, and
+    the function that takes the layer's new state back to the widths it
+    arrived in.  The layer computes on ``1 / tp`` of its channels where its
+    weights are this model rank's shards (else on all); a state leaf the
+    rules replicate over the model ranks is then cut to the rank's part
+    and the layer's new part all-gathered (no collective where the widths
+    agree: always at one rank, and where the rules split the leaf as they
+    split the weights)."""
+    if mg is None or mg.size == 1:
+        return state, lambda new: new
+    full, local = _mixer_channels(cfg, mk), p[_OUT_PROJ[mk]].shape[0]
+    gathered, out = set(), {}
+    for key, x in state.items():
+        dim = STATE_SPLIT_DIM[key]
+        # the leaf's whole extent there: the mLSTM's heads, else channels
+        f = cfg.n_heads if mk == "mlstm" and key != "conv" else full
+        have, want = x.shape[dim], f * local // full
+        if have != want:
+            if have != f:
+                raise ValueError(f"a {mk} state leaf {key} of {have} along "
+                                 f"dimension {dim} for a layer on {want}")
+            gathered.add(key)
+            x = x.narrow(dim, mg.rank * want, want)
+        out[key] = x
+
+    def back(new: dict) -> dict:
+        return {key: TP.gather_from_model(x, mg, STATE_SPLIT_DIM[key])
+                if key in gathered else x for key, x in new.items()}
+    return out, back
+
+
 def _write_state(dst: dict, i: int, new: dict) -> None:
     """Superblock i's slice of the stacked state ``dst`` := ``new``."""
     for key, val in new.items():
@@ -313,6 +390,112 @@ def _write_state(dst: dict, i: int, new: dict) -> None:
 
 def _slice_state(st: dict, i: int) -> dict:
     return {key: val[i] for key, val in st.items()}
+
+
+@dataclasses.dataclass
+class KVSlot:
+    """One attention position's KV cache in a cached pass: this rank's
+    shards ``k``, ``v`` of the stacked ``[nsb, B, max_seq, KVH, D]``
+    leaves (its rows of the batch), ``max_seq``, the positions ``seq`` and
+    the part ``dim`` of the head dimension they hold, and ``split``, the
+    :class:`.layers.CacheSplit` of the mesh dimensions of more than one
+    rank that split the sequence or the head dimension (None where none
+    does: the whole cache, and the plain decode attention).  ``work``:
+    :meth:`prefix`'s keys and values of the prompt's earlier chunks where
+    the cache does not hold the rank's KV heads whole (None once the pass
+    has ended)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    max_seq: int
+    seq: slice
+    dim: slice
+    split: Optional[L.CacheSplit] = None
+    axes: Tuple[str, ...] = ()
+    work: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    @classmethod
+    def whole(cls, k, v) -> "KVSlot":
+        return cls(k, v, k.shape[2], slice(0, k.shape[2]),
+                   slice(0, k.shape[4]))
+
+    @classmethod
+    def of(cls, k, v, shape, sharding: Sharding) -> "KVSlot":
+        """The slot of this rank's shards ``k``, ``v`` of leaves of global
+        ``shape`` placed by ``sharding``."""
+        sl = local_slices(shape, sharding)
+        if sl[3] != slice(0, shape[3]):
+            raise ValueError("a KV cache split over its KV heads")
+        ms = mesh_shape(sharding.mesh)
+        seq_groups, dim_groups, axes = [], [], []
+        for m, pl in enumerate(sharding.placements):
+            if ms.sizes[m] == 1 or not pl.is_shard() or pl.dim < 2:
+                continue
+            group = sharding.mesh.get_group(m)
+            (seq_groups if pl.dim == 2 else dim_groups).append(group)
+            axes.append(ms.axis_names[m])
+        split = (L.CacheSplit(sl[2].start, tuple(seq_groups),
+                              tuple(dim_groups), sl[4])
+                 if seq_groups or dim_groups else None)
+        return cls(k, v, shape[2], sl[2], sl[4], split, tuple(axes))
+
+    def split_over(self, axis: str) -> bool:
+        return axis in self.axes
+
+    def _all_positions(self) -> bool:
+        return self.seq == slice(0, self.max_seq)
+
+    def write(self, i: int, k, v, off: int) -> None:
+        """Superblock i's K/V of positions ``off ..`` [B, Sc, KVH, D] (every
+        KV head, whole) into the part of the cache this rank holds."""
+        lo = max(off, self.seq.start)
+        hi = min(off + k.shape[1], self.seq.stop)
+        if lo < hi:
+            s0 = self.seq.start
+            for dst, src in ((self.k[i], k), (self.v[i], v)):
+                dst[:, lo - s0:hi - s0] = src[:, lo - off:hi - off, :,
+                                              self.dim].to(dst.dtype)
+
+    def write_step(self, i: int, k, v, kv_len) -> None:
+        """One decode step's K/V [B, 1, KVH, D] at positions ``kv_len``
+        [B], on the rank that holds each row's position."""
+        if self._all_positions():
+            rows, at = torch.arange(k.shape[0], device=k.device), kv_len
+        else:
+            rows = torch.nonzero((kv_len >= self.seq.start)
+                                 & (kv_len < self.seq.stop))[:, 0]
+            at = kv_len[rows] - self.seq.start
+        for dst, src in ((self.k[i], k), (self.v[i], v)):
+            dst[rows, at] = src[rows, 0, :, self.dim].to(dst.dtype)
+
+    def prefix(self, i: int, k, v, off: int, prompt: int, heads=None):
+        """The keys and values ``[B, >= off + Sc, KVH_r, D]`` that this
+        rank's query heads attend over in the chunk at ``off`` of a prompt
+        of ``prompt`` positions (``k``, ``v``: the chunk's, every KV head;
+        ``heads``: ``(h0, n, group)``, the rank's query heads ``h0 .. h0 +
+        n`` of groups of ``group``, or None for all): the cache itself
+        where it holds every position and the whole head dimension (the
+        rank's KV heads' view of it); else the chunk's own where it is the
+        whole prompt, and otherwise the rank's KV heads of the prompt so
+        far, kept whole in ``work`` (``prompt`` positions, dropped at the
+        pass's end)."""
+        def mine(a):
+            return a if heads is None else L.kv_heads_of(a, *heads)
+        if self._all_positions() and self.dim == slice(0, k.shape[-1]):
+            return mine(self.k[i]), mine(self.v[i])
+        k, v = mine(k), mine(v)
+        Sc = k.shape[1]
+        if Sc == prompt:
+            return k, v
+        if self.work is None:
+            nsb, B = self.k.shape[0], k.shape[0]
+            self.work = tuple(torch.empty((nsb, B, prompt)
+                                          + tuple(k.shape[2:]),
+                                          dtype=self.k.dtype,
+                                          device=k.device) for _ in "kv")
+        kw, vw = self.work[0][i], self.work[1][i]
+        kw[:, off:off + Sc] = k.to(kw.dtype)
+        vw[:, off:off + Sc] = v.to(vw.dtype)
+        return kw, vw
 
 
 # ---------------------------------------------------------------------------
@@ -330,8 +513,9 @@ class Model:
     gradient over the same ranks: each rank's gradient is then the number
     of data ranks times its share, and their mean the global batch's,
     :func:`..train.train_step.make_train_step`).  Along ``"model"`` the
-    full-sequence passes compute tensor-parallel on the weights' model
-    shards (the module's docstring; :meth:`local_params`).  The compute
+    passes compute tensor-parallel on the weights' model shards (the
+    module's docstring; :meth:`local_params`); the cached passes keep the
+    decode state as DTensors placed under ``act_rules``.  The compute
     runs on plain tensors: DTensor parameters are turned into this rank's
     local tensors first, and activations go through
     ``with_logical_constraint``, the identity on plain tensors."""
@@ -469,29 +653,34 @@ class Model:
                state: Optional[dict]):
         """A recurrent position's mixer over h [B, S, d] from ``state`` (one
         superblock's slice) → (out, new state); from a zero state, and with
-        no state out, where ``state`` is None."""
+        no state out, where ``state`` is None.  On this model rank's
+        channels or heads where its weights are the rank's shards, the
+        state fitted to them (:func:`_fit_state`)."""
         cfg, sc = self.cfg, self.rc.scan_chunk
         mk = _mixer_kind(cfg, j)
+        mg = model_group(self.mesh)
         if state is None:
             layer = {"mamba": M.mamba_layer, "mlstm": X.mlstm_layer,
                      "slstm": X.slstm_layer}[mk]
-            return layer(cfg, p[mk], h, scan_chunk=sc), None
+            return layer(cfg, p[mk], h, scan_chunk=sc, mg=mg), None
+        state, back = _fit_state(cfg, mk, p[mk], state, mg)
         if mk == "mamba":
             out, (cs, ss) = M.mamba_layer(
                 cfg, p["mamba"], h, scan_chunk=sc,
-                state=(state["conv"], state["ssm"]), return_state=True)
-            return out, {"conv": cs, "ssm": ss}
+                state=(state["conv"], state["ssm"]), return_state=True,
+                mg=mg)
+            return out, back({"conv": cs, "ssm": ss})
         if mk == "mlstm":
             st = X.MLSTMState(state["conv"], state["C"], state["n"],
                               state["m"])
             out, s = X.mlstm_layer(cfg, p["mlstm"], h, scan_chunk=sc,
-                                   state=st, return_state=True)
-            return out, {"conv": s.conv, "C": s.C, "n": s.n, "m": s.m}
+                                   state=st, return_state=True, mg=mg)
+            return out, back({"conv": s.conv, "C": s.C, "n": s.n, "m": s.m})
         if mk == "slstm":
             st = X.SLSTMState(state["c"], state["n"], state["m"], state["h"])
             out, s = X.slstm_layer(cfg, p["slstm"], h, scan_chunk=sc,
-                                   state=st, return_state=True)
-            return out, {"c": s.c, "n": s.n, "m": s.m, "h": s.h}
+                                   state=st, return_state=True, mg=mg)
+            return out, back({"c": s.c, "n": s.n, "m": s.m, "h": s.h})
         raise ValueError(mk)
 
     def _ffn(self, j: int, p: dict, x: torch.Tensor):
@@ -680,8 +869,19 @@ class Model:
         query offset on the card, ``chunked_attention`` on the CPU);
         recurrent positions carry their state from chunk to chunk, and
         each chunk's MoE dispatch takes its own capacity.  Returns
-        (logits [B, S, V], decode state) as :meth:`prefill`."""
+        (logits [B, S, V], decode state) as :meth:`prefill`.
+
+        On a ``DeviceMesh`` (:meth:`_cache_pass`) the inputs are this
+        rank's rows, the compute is tensor-parallel on the weights' model
+        shards, and the state comes back as DTensors placed by
+        ``decode_state_logical`` under ``act_rules``: under ``"default"``
+        each rank computes every KV head (``wk``, ``wv`` are replicated)
+        and keeps its part of the head dimension, and the chunks attend
+        over the rank's own KV heads, kept whole beside the cache for the
+        prompt's positions until the pass ends (:meth:`KVSlot.prefix`)."""
         cfg, rc = self.cfg, self.rc
+        params = self.local_params(params)
+        mg = model_group(self.mesh)
         x_full = self._inputs(params, tokens, patch_embeds, input_embeds)
         B, S = x_full.shape[:2]
         if S % n_chunks:
@@ -689,26 +889,30 @@ class Model:
                              "chunks")
         Sc = S // n_chunks
         dev = x_full.device
-        state = init_decode_state(cfg, B, max_seq or S, self.cdt, dev)
+        group = cfg.n_heads // cfg.n_kv_heads
+        slots, finish = self._cache_pass(None, B, max_seq or S, dev)
         hidden = []
         for off in range(0, S, Sc):
             positions = (off + torch.arange(Sc, device=dev)).expand(B, Sc)
 
-            def attend(i, p, st, h, off=off, positions=positions):
-                q, k, v = L.attention_qkv(cfg, p, h, positions)
-                kc, vc = st["k"][i], st["v"][i]
-                kc[:, off:off + Sc] = k.to(kc.dtype)
-                vc[:, off:off + Sc] = v.to(vc.dtype)
+            def attend(i, p, slot, h, off=off, positions=positions):
+                q, k, v = L.attention_qkv(cfg, p, h, positions, mg,
+                                          all_kv=True)
+                slot.write(i, k, v, off)
+                n = q.shape[2]
+                kc, vc = slot.prefix(i, k, v, off, S,
+                                     None if n == cfg.n_heads
+                                     else (mg.rank * n, n, group))
                 o = L.prefill_attention(
                     q, kc[:, :off + Sc].to(q.dtype),
                     vc[:, :off + Sc].to(q.dtype), causal=cfg.causal, rc=rc,
                     q_offset=off)
-                return o.reshape(B, Sc, cfg.q_dim) @ p["wo"]
+                return L.attention_out(cfg, p, o, mg)
 
             hidden.append(self._layers(params, x_full[:, off:off + Sc],
-                                       state, attend)[0])
+                                       slots, attend)[0])
         x = hidden[0] if n_chunks == 1 else torch.cat(hidden, dim=1)
-        return self._head(params, x), state
+        return self._head(params, x), finish()
 
     @torch.no_grad()
     def decode_step(self, params, state, tokens: torch.Tensor,
@@ -716,25 +920,109 @@ class Model:
         """One decode step against the dense KV cache: tokens [B, 1],
         kv_len [B] → (logits [B, 1, V], state).  Writes the step's K/V at
         position ``kv_len`` and each recurrent layer's new state into
-        ``state`` in place."""
+        ``state`` in place.
+
+        On a ``DeviceMesh`` (:meth:`_cache_pass`) tokens and kv_len are
+        this rank's rows and ``state`` is placed by ``decode_state_logical``
+        under ``act_rules`` (redistributed once on entry where it arrives
+        otherwise; returned as DTensors).  Under ``"decode"`` the cache is
+        split along the sequence over ``"model"``: the rank that holds
+        position ``kv_len`` writes the step's K/V, the query heads are
+        all-gathered over the model ranks, each rank takes the softmax's
+        partial over its positions for every head and the partials combine
+        (:func:`.layers.decode_attention`), and the rank keeps its heads
+        for the row-parallel ``wo``."""
         cfg = self.cfg
+        params = self.local_params(params)
+        mg = model_group(self.mesh)
         B = tokens.shape[0]
         dev = tokens.device
         kv_len = torch.as_tensor(kv_len, device=dev).long()
-        bidx = torch.arange(B, device=dev)
+        slots, finish = self._cache_pass(state, B, None, dev)
 
-        def attend(i, p, st, h):
-            q, k, v = L.attention_qkv(cfg, p, h, kv_len[:, None])
-            kc, vc = st["k"][i], st["v"][i]
-            kc[bidx, kv_len] = k[:, 0].to(kc.dtype)
-            vc[bidx, kv_len] = v[:, 0].to(vc.dtype)
+        def attend(i, p, slot, h):
+            q, k, v = L.attention_qkv(cfg, p, h, kv_len[:, None], mg,
+                                      all_kv=True)
+            slot.write_step(i, k, v, kv_len)
+            n = q.shape[2]
+            every = n != cfg.n_heads and slot.split_over(MODEL_AXIS)
+            if every:                  # the partials cover every head
+                q = TP.gather_from_model(q, mg, dim=2)
+            kc, vc = slot.k[i], slot.v[i]
+            if n != cfg.n_heads and not every:
+                group = cfg.n_heads // cfg.n_kv_heads
+                kc = L.kv_heads_of(kc, mg.rank * n, n, group)
+                vc = L.kv_heads_of(vc, mg.rank * n, n, group)
             o = L.decode_attention(q, kc.to(q.dtype), vc.to(q.dtype),
-                                   kv_len + 1)
-            return o.reshape(B, 1, cfg.q_dim) @ p["wo"]
+                                   kv_len + 1, split=slot.split)
+            if every:
+                o = o[:, :, mg.rank * n:(mg.rank + 1) * n]
+            return L.attention_out(cfg, p, o, mg)
 
-        x, _ = self._layers(params, self._embed(params, tokens), state,
+        x, _ = self._layers(params, self._embed(params, tokens), slots,
                             attend)
-        return self._head(params, x), state
+        return self._head(params, x), finish()
+
+    def _cache_pass(self, state: Optional[dict], batch: int,
+                    max_seq: Optional[int], dev):
+        """The decode state of one cached pass → (the tree :meth:`_layers`
+        runs on: a :class:`KVSlot` at each attention position, the local
+        leaves elsewhere; the function that returns the pass's state).
+        ``state=None``: a new zero state for ``batch`` rows and
+        ``max_seq`` positions (:meth:`prefill_chunked`).  Without a
+        ``DeviceMesh`` the state is plain tensors, whole, as before; on
+        one, this rank's shards of the leaves placed by
+        :func:`..distributed.sharding.decode_state_sharding` under
+        ``act_rules`` (``batch`` is this rank's rows of the global
+        batch), redistributed where the given DTensors sit otherwise, and
+        the state is returned as DTensors over them."""
+        cfg = self.cfg
+        if not is_device_mesh(self.mesh):
+            if state is None:
+                state = init_decode_state(cfg, batch, max_seq, self.cdt, dev)
+            slots = {pos: (KVSlot.whole(st["k"], st["v"]) if "k" in st
+                           else st) for pos, st in state.items()}
+            return slots, lambda: state
+        axes = batch_axes(self.mesh, self.act_rules)
+        n_rows = axes_index(self.mesh, axes)[1] if axes else 1
+        if state is None:
+            shapes = decode_state_shapes(cfg, batch * n_rows, max_seq,
+                                         self.cdt)
+        else:
+            shapes = {pos: {name: (tuple(x.shape), x.dtype)
+                            for name, x in leaves.items()}
+                      for pos, leaves in state.items()}
+        some = next(iter(next(iter(shapes.values())).values()))[0]
+        seq = max((sh[2] for leaves in shapes.values()
+                   for name, (sh, _) in leaves.items() if name == "k"),
+                  default=1)
+        places = decode_state_sharding(cfg, some[1], seq, self.mesh,
+                                       self.act_rules)
+        if state is None:
+            local = _zero_state(
+                {pos: {name: (tuple(sl.stop - sl.start for sl in
+                                    local_slices(shape, places[pos][name])),
+                              dt) for name, (shape, dt) in leaves.items()}
+                 for pos, leaves in shapes.items()}, dev)
+        else:
+            local = {pos: {name: x.redistribute(
+                places[pos][name].mesh,
+                tuple(places[pos][name].placements)).to_local()
+                for name, x in leaves.items()}
+                for pos, leaves in state.items()}
+        slots = {pos: (KVSlot.of(st["k"], st["v"], shapes[pos]["k"][0],
+                                 places[pos]["k"]) if "k" in st else st)
+                 for pos, st in local.items()}
+
+        def finish():
+            for slot in slots.values():
+                if isinstance(slot, KVSlot):
+                    slot.work = None
+            return {pos: {name: from_local(x, places[pos][name],
+                                           shapes[pos][name][0])
+                          for name, x in leaves.items()}
+                    for pos, leaves in local.items()}
+        return slots, finish
 
     @torch.no_grad()
     def decode_step_paged(self, params, state, tokens: torch.Tensor,

@@ -25,6 +25,24 @@ rises to at least 0 and rescales ``C`` and ``n``; the sLSTM's gates see
   v_s) / max(|decay_t n_0 . q_t + sum_s D_ts (k_s . q_t)|, 1)`` — one
   chunk's products instead of Q dependent steps; its f32 rounding differs
   from the step order's.
+
+Tensor-parallel (``mg``, where the leaves arrive as this model rank's
+shards; every head's recurrence is its own, so a rank runs its ``H /
+tp`` heads):
+
+* mLSTM: ``up_proj`` through
+  :func:`..distributed.tensor_parallel.paired_halves` (the rank's x and
+  z channels, which are its heads' channels) and the conv on them;
+  ``wq``, ``wk``, ``wv``, ``w_i`` and ``w_f`` row-parallel (the rules put
+  ``"mlp"`` on their input dimension), their partial products
+  reduce-scattered onto the rank's heads; the recurrence and the group
+  norm on those heads, ``down_proj`` row-parallel;
+* sLSTM: ``w_*`` column-parallel by heads; the replicated ``r_*``,
+  ``b_*`` and ``norm`` taken at the rank's heads after ``copy_to_model``
+  (so each rank ends with their whole gradient); ``out_proj``
+  row-parallel.
+
+The decode state is then the rank's heads (channels).
 """
 from __future__ import annotations
 
@@ -34,6 +52,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as TP
+from ..distributed.tensor_parallel import ModelGroup
 from .common import Spec
 from .config import ModelConfig
 
@@ -130,16 +150,22 @@ def _mlstm_chunk(carry, q, k, v, it, ft):
 def mlstm_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                 scan_chunk: int = 128,
                 state: Optional[MLSTMState] = None,
-                return_state: bool = False):
+                return_state: bool = False, mg: Optional[ModelGroup] = None):
     """x: [B, S, d_model] → [B, S, d_model] (+ the new :class:`MLSTMState`
-    with ``return_state``)."""
+    with ``return_state``); on this model rank's heads where the leaves
+    are its shards (the module's docstring)."""
     B, S, d = x.shape
-    d_in = 2 * d
-    H = cfg.n_heads
-    dh = d_in // H
+    d_in = p["down_proj"].shape[0]         # this rank's channels
+    split = TP.splits(mg, d_in, 2 * d)
+    dh = 2 * d // cfg.n_heads
+    H = d_in // dh                         # this rank's heads
     dev = x.device
 
-    xz = x @ p["up_proj"]
+    if split:
+        x = TP.copy_to_model(x, mg)
+        xz = x @ TP.paired_halves(p["up_proj"], mg)
+    else:
+        xz = x @ p["up_proj"]
     xm, z = xz.split(d_in, dim=-1)
     conv_state = (state.conv if state is not None else
                   torch.zeros((B, 3, d_in), dtype=x.dtype, device=dev))
@@ -150,13 +176,18 @@ def mlstm_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     xc = F.silu(xc + p["conv_b"])
     new_conv = xp[:, -3:]
 
+    def mine(a, w):
+        """a @ w; row-parallel, reduced onto the rank's heads."""
+        out = a @ w
+        return TP.reduce_scatter_to_model(out, mg) if split else out
+
     def heads(a):
         return a.reshape(B, S, H, dh).float()
-    q = heads(xc @ p["wq"]) / math.sqrt(dh)
-    k = heads(xc @ p["wk"]) / math.sqrt(dh)
-    v = heads(xm @ p["wv"])
-    it = (xc @ p["w_i"]).float()
-    ft = F.logsigmoid((xc @ p["w_f"]).float())
+    q = heads(mine(xc, p["wq"])) / math.sqrt(dh)
+    k = heads(mine(xc, p["wk"])) / math.sqrt(dh)
+    v = heads(mine(xm, p["wv"]))
+    it = mine(xc, p["w_i"]).float()
+    ft = F.logsigmoid(mine(xc, p["w_f"]).float())
 
     if state is not None:
         carry = (state.C.float(), state.n.float(), state.m.float())
@@ -187,6 +218,8 @@ def mlstm_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     hn = _group_norm(h, H, p["norm"])
     y = (hn * F.silu(z.float())).to(x.dtype)
     out = y @ p["down_proj"]
+    if split:
+        out = TP.reduce_from_model(out, mg)
     if return_state:
         return out, MLSTMState(new_conv, *carry)
     return out
@@ -223,13 +256,24 @@ class SLSTMState(NamedTuple):
 def slstm_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                 scan_chunk: int = 128,
                 state: Optional[SLSTMState] = None,
-                return_state: bool = False):
+                return_state: bool = False, mg: Optional[ModelGroup] = None):
     """x: [B, S, d_model] → [B, S, d_model] (+ the new :class:`SLSTMState`
-    with ``return_state``)."""
-    B, S, d = x.shape
-    H = cfg.n_heads
-    dh = d // H
+    with ``return_state``); on this model rank's heads where the leaves
+    are its shards (the module's docstring: ``d`` below is then the
+    rank's ``d_model / tp`` channels)."""
+    B, S, d_model = x.shape
+    d = p["out_proj"].shape[0]             # this rank's channels
+    split = TP.splits(mg, d, d_model)
+    dh = d_model // cfg.n_heads
+    H = d // dh                            # this rank's heads
     dev = x.device
+    p = dict(p)
+    if split:
+        x = TP.copy_to_model(x, mg)
+        for key in [f"r_{g}" for g in GATES]:
+            p[key] = TP.copy_to_model(p[key], mg).narrow(0, mg.rank * H, H)
+        for key in [f"b_{g}" for g in GATES] + ["norm"]:
+            p[key] = TP.copy_to_model(p[key], mg).narrow(0, mg.rank * d, d)
 
     # input contributions of all gates, [B, S, 4, d] (in parallel)
     pre = torch.stack([(x @ p[f"w_{g}"]).float() + p[f"b_{g}"].float()
@@ -269,6 +313,8 @@ def slstm_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
     hn = _group_norm(hseq, H, p["norm"])
     out = hn.to(x.dtype) @ p["out_proj"]
+    if split:
+        out = TP.reduce_from_model(out, mg)
     if return_state:
         return out, SLSTMState(c, n, m, h)
     return out

@@ -235,7 +235,10 @@ def make_prefill_step(model: Model):
 
 
 def make_serve_step(model: Model):
-    """One decode step against a dense KV / SSM cache."""
+    """One decode step against a dense KV / SSM cache
+    (:meth:`..models.model.Model.decode_step`; on a model with a mesh,
+    tokens and kv_len are this rank's rows and the state is placed by the
+    rules under the model's ``act_rules``)."""
     def serve_step(params, state, tokens, kv_len):
         return model.decode_step(params, state, tokens, kv_len)
     return serve_step

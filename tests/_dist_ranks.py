@@ -27,15 +27,28 @@ TRAIN_CASES = {          # name: (arch, microbatches, batch, seq)
     "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", 1, 4, 32),
     "internlm2-6-heads": ("internlm2-1.8b", 1, 8, 32),
     "jamba-1.5-large-398b": ("jamba-1.5-large-398b", 1, 4, 32),
+    "xlstm-350m": ("xlstm-350m", 1, 4, 32),
 }
 # the optimizer of each case's tensor-parallel step: Adafactor where
 # AdamW's first step, g / (|g| + eps), blows f32 rounding up past the
-# comparison's 1e-6 (the encoder and the Mamba hybrid)
-TP_KINDS = {"hubert-xlarge": "adafactor", "jamba-1.5-large-398b": "adafactor"}
+# comparison's 1e-6 (the encoder, the Mamba hybrid and the xLSTM)
+TP_KINDS = {"hubert-xlarge": "adafactor", "jamba-1.5-large-398b": "adafactor",
+            "xlstm-350m": "adafactor"}
 # the reduced config's fields a case replaces: 6 heads of 32 (q_dim 192)
 # split over 4 model ranks by q_dim (48 columns: a head and a half each)
 OVERRIDES = {"internlm2-6-heads": dict(n_heads=6, n_kv_heads=2)}
 COLLECTIVE_TIMEOUT_S = 60
+# the cached passes on a mesh: prefill and prefill_chunked (2 chunks) of
+# a prompt of SEQ tokens under "default", then STEPS greedy decode steps
+# under "decode" from the prefill's state (positions 10 .. 17 of 24 cross
+# from one model rank's part of the sequence to the next at tp 2 and 4)
+CACHE_ARCHS = ("internlm2-1.8b", "qwen2-moe-a2.7b", "jamba-1.5-large-398b",
+               "xlstm-350m", "llava-next-34b")
+CACHE = dict(batch=2, seq=10, max_seq=24, steps=8, chunks=2)
+# the cached passes' decode under "decode_long" on (2,2) (the sequence
+# split over "data", the head dimension over "model"), from the prefill's
+# state under "default": an attention model and the Mamba hybrid
+LONG_ARCHS = ("internlm2-1.8b", "jamba-1.5-large-398b")
 
 
 def start(fn, world: int, tmp: str, *args):
@@ -116,20 +129,24 @@ def train_setup(name: str, kind: str):
 def probe():
     """Records, while it is open, what the model computes on: the query
     heads, MLP and expert hidden widths and logits' vocabulary widths it
-    sees (sets), the experts every call routes to (``"routes"``), and the
+    sees, each recurrent mixer's channels (``"mixer"``: (kind, width))
+    (sets), the experts every call routes to (``"routes"``), and the
     leaves sharded over "model" that ``Model.local_params`` gathers whole
     for the compute (``"model_gathers"``, read off ``GATHERS``; the
     optimizer's own gathers are not counted)."""
     from repro_torch.distributed import sharding as S
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.models import layers as L
+    from repro_torch.models import mamba as M
     from repro_torch.models import model as TM
     from repro_torch.models import moe as MoE
+    from repro_torch.models import xlstm as X
     rec = {"q_heads": set(), "mlp": set(), "expert": set(), "vocab": set(),
-           "routes": []}
+           "mixer": set(), "routes": []}
     saved = [(L, "attention_qkv"), (L, "mlp"), (MoE, "mlp"),
              (MoE, "moe_experts"), (MoE, "route"),
-             (TP, "vocab_parallel_nll")]
+             (TP, "vocab_parallel_nll"), (M, "mamba_layer"),
+             (X, "mlstm_layer"), (X, "slstm_layer")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
     orig = {name: fn for _, name, fn in saved}
     rec["model_gathers"] = 0
@@ -164,9 +181,18 @@ def probe():
         rec["vocab"].add(logits.shape[-1])
         return orig["vocab_parallel_nll"](logits, *a, **k)
 
+    def mixer(kind, out):
+        def layer(cfg, p, *a, **k):
+            rec["mixer"].add((kind, p[out].shape[0]))
+            return orig[f"{kind}_layer"](cfg, p, *a, **k)
+        return layer
+
     new = {"attention_qkv": attention_qkv, "mlp": mlp,
            "moe_experts": moe_experts, "route": route,
-           "vocab_parallel_nll": nll}
+           "vocab_parallel_nll": nll,
+           "mamba_layer": mixer("mamba", "out_proj"),
+           "mlstm_layer": mixer("mlstm", "down_proj"),
+           "slstm_layer": mixer("slstm", "out_proj")}
     for mod, name, _ in saved:
         setattr(mod, name, new[name])
     TM.Model.local_params = counted
@@ -244,6 +270,193 @@ def tp_forward(mesh, tmp: str) -> None:
     got = [None] * dist.get_world_size()
     dist.all_gather_object(got, (logits.numpy(), rec))
     save(tmp, "tp_forward", got)
+
+
+def cache_setup(arch: str):
+    """(model, numpy weights, prompt tokens [B, S]) of a cached-pass case
+    (the parent builds the same from the same seeds)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, RunConfig
+    model = Model(get_config(arch, True), RunConfig(**CHUNKS))
+    toks = np.random.default_rng(5).integers(
+        0, model.cfg.vocab, (CACHE["batch"], CACHE["seq"]))
+    return model, model.init_numpy(0), toks
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The next tokens [B, 1] of logits [B, S, V]: the last position's
+    argmax."""
+    return logits[:, -1:].argmax(-1)
+
+
+def _state_record(state) -> dict:
+    """``{path: (placements, this rank's shape, the whole leaf)}`` of a
+    DTensor decode state (every rank gathers, rank 0's copy is kept)."""
+    from repro_torch.checkpoint.checkpointer import leaf_paths
+    return {path: (tuple(x.placements), tuple(x.to_local().shape),
+                   x.full_tensor().numpy().copy())
+            for path, x in leaf_paths(state)}
+
+
+def cached_passes(arch: str, mesh, decode_rules: str = "decode") -> dict:
+    """The cached passes (``CACHE``) of a reduced model on ``mesh`` from
+    DTensor weights placed by the rules, each rank on its rows of the
+    batch: prefill and prefill_chunked under ``"default"`` (no chunked
+    prefill but under ``"decode"``), then greedy ``decode_step``s under
+    ``decode_rules`` from the prefill's state (placed under "default":
+    redistributed on entry) and the weights' local shards
+    (``Model.local_params`` once), each rank on its rows of the batch
+    under ``decode_rules``.  Every rank's logits and tokens, rank 0's
+    record of each state, and what each rank computed on
+    (:func:`probe`)."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpointer import leaf_paths, rebuild
+    from repro_torch.distributed.sharding import (axes_index, batch_axes,
+                                                  param_sharding,
+                                                  shard_local)
+    from repro_torch.models import params_from_numpy
+    from repro_torch.models.common import logical_tree, spec_shapes
+    from repro_torch.train.train_step import make_serve_step
+    model, P, toks = cache_setup(arch)
+    specs = model.specs()
+    psh = dict(leaf_paths(param_sharding(logical_tree(specs),
+                                         spec_shapes(specs), mesh)))
+    full = params_from_numpy(P, device="cpu")
+    params = rebuild(full, {p: shard_local(x, psh[p])
+                            for p, x in leaf_paths(full)})
+    idx, n = axes_index(mesh, batch_axes(mesh, "default"))
+    b = CACHE["batch"] // n
+    tokens = torch.from_numpy(toks[idx * b:(idx + 1) * b])
+    pre = dataclasses.replace(model, mesh=mesh, act_rules="default")
+    dec = dataclasses.replace(model, mesh=mesh, act_rules=decode_rules)
+    mine, out = {}, {}
+    with torch.no_grad(), probe() as rec:
+        logits, st = pre.prefill(params, tokens, max_seq=CACHE["max_seq"])
+        mine["prefill"] = logits.numpy()
+        out["prefill"] = _state_record(st)
+        if decode_rules == "decode":
+            lc, sc = pre.prefill_chunked(params, tokens,
+                                         n_chunks=CACHE["chunks"],
+                                         max_seq=CACHE["max_seq"])
+            mine["chunked"] = lc.numpy()
+            out["chunked"] = _state_record(sc)
+            del sc
+        # the decode's rows of the global batch's greedy tokens
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (idx, greedy(logits).numpy()))
+        nxt = np.concatenate([t for _, t in sorted(dict(every).items())])
+        idx, n = axes_index(mesh, batch_axes(mesh, decode_rules))
+        b = CACHE["batch"] // n
+        nxt, steps = torch.from_numpy(nxt[idx * b:(idx + 1) * b]), []
+        local = dec.local_params(params)      # once, as a server would
+        serve_step = make_serve_step(dec)
+        for step in range(CACHE["steps"]):
+            kv_len = torch.full((b,), CACHE["seq"] + step)
+            lg, st = serve_step(local, st, nxt, kv_len)
+            steps.append((nxt.numpy(), lg.numpy()))
+            nxt = greedy(lg)
+        mine["decode"] = steps
+        out["decode"] = _state_record(st)
+    rec["coordinate"] = tuple(mesh.get_coordinate())
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, (mine, rec))
+    out["ranks"] = ranks
+    return out
+
+
+MIXERS = {"mamba": "jamba-1.5-large-398b", "mlstm": "xlstm-350m",
+          "slstm": "xlstm-350m"}
+
+
+def tp_mixers_f64(mesh) -> dict:
+    """Each recurrent mixer (Mamba, mLSTM, sLSTM of the reduced configs) in
+    float64 on the model ranks of ``mesh``, from its leaves' model shards
+    as the rules place them, forward from a state and backward: every
+    rank's output, new state and the gradients of its shards and of the
+    input, for the test to hold to the whole layer (in f64 the only
+    difference is the order of sums: ~1e-15)."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpointer import leaf_paths
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (local_slices,
+                                                  model_group,
+                                                  param_sharding,
+                                                  shard_local)
+    from repro_torch.models import mamba as M
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.common import logical_tree, spec_shapes
+    mg = model_group(mesh)
+    out = {}
+    for kind, arch in MIXERS.items():
+        cfg = get_config(arch, True)
+        specs = {"mamba": M.mamba_specs, "mlstm": X.mlstm_specs,
+                 "slstm": X.slstm_specs}[kind](cfg)
+        psh = dict(leaf_paths(param_sharding(logical_tree(specs),
+                                             spec_shapes(specs), mesh)))
+        rng = np.random.default_rng(11)
+        full = {p: rng.standard_normal(sp.shape) * 0.05
+                for p, sp in leaf_paths(specs)}
+        x = rng.standard_normal((2, 7, cfg.d_model))
+        r = rng.standard_normal((2, 7, cfg.d_model))
+        st = tp_mixer_state(kind, cfg, rng)
+        leaves = {p: shard_local(torch.from_numpy(a), psh[p]).to_local()
+                  .clone().requires_grad_(True) for p, a in full.items()}
+        xt = torch.from_numpy(x).requires_grad_(True)
+        state = tp_state_slice(kind, st, mg)
+        layer = {"mamba": M.mamba_layer, "mlstm": X.mlstm_layer,
+                 "slstm": X.slstm_layer}[kind]
+        y, new = layer(cfg, leaves, xt, scan_chunk=4, state=state,
+                       return_state=True, mg=mg)
+        (y * torch.from_numpy(r)).sum().backward()
+        out[kind] = dict(
+            full=full, x=x, r=r, state=st, y=y.detach().numpy(),
+            new=[a.detach().numpy() for a in new],
+            grads={p: t.grad.numpy() for p, t in leaves.items()},
+            slices={p: local_slices(full[p].shape, psh[p]) for p in leaves},
+            gx=xt.grad.numpy())
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, (mg.rank, out))
+    return dict(ranks=ranks)
+
+
+def tp_mixer_state(kind, cfg, rng) -> tuple:
+    """A random float64 state of a reduced mixer (batch 2), whole."""
+    d = cfg.d_model
+    if kind == "mamba":
+        d_in = cfg.mamba.expand * d
+        return (rng.standard_normal((2, cfg.mamba.d_conv - 1, d_in)),
+                rng.standard_normal((2, d_in, cfg.mamba.d_state)))
+    if kind == "mlstm":
+        H, dh = cfg.n_heads, 2 * d // cfg.n_heads
+        return (rng.standard_normal((2, 3, 2 * d)),
+                rng.standard_normal((2, H, dh, dh)) * 0.1,
+                rng.standard_normal((2, H, dh)) * 0.1,
+                rng.standard_normal((2, H)))
+    return tuple(rng.standard_normal((2, d)) for _ in range(4))
+
+
+#: each mixer state's leaves, in the order of its tuple
+STATE_KEYS = {"mamba": ("conv", "ssm"), "mlstm": ("conv", "C", "n", "m"),
+              "slstm": ("c", "n", "m", "h")}
+
+
+def state_dims(kind: str) -> tuple:
+    """The dimension of each of a mixer state's leaves that holds its
+    channels or heads (``model.STATE_SPLIT_DIM``)."""
+    from repro_torch.models.model import STATE_SPLIT_DIM
+    return tuple(STATE_SPLIT_DIM[k] for k in STATE_KEYS[kind])
+
+
+def tp_state_slice(kind, st, mg):
+    """The model rank's channels or heads of a whole mixer state."""
+    from repro_torch.models import xlstm as X
+    parts = []
+    for a, dim in zip(st, state_dims(kind)):
+        w = a.shape[dim] // mg.size
+        parts.append(torch.from_numpy(a).narrow(dim, mg.rank * w, w))
+    if kind == "mamba":
+        return tuple(parts)
+    return (X.MLSTMState if kind == "mlstm" else X.SLSTMState)(*parts)
 
 
 def tp_operators(mesh, tmp: str) -> None:
@@ -331,9 +544,10 @@ def make_trainer(name, kind, mesh, ckpt_dir, total, fail_at=None,
 
 def ranks_four(rank: int, world: int, tmp: str) -> None:
     """4 ranks: sharded steps on (2,2), (4,1) and (1,4) per optimizer
-    kind; tensor-parallel steps of the encoder and the MoE model on (2,2)
-    and of a 6-head model on (1,4); the forward and each tensor-parallel
-    operator on (1,4); a Trainer through a one-rank failure and its
+    kind; tensor-parallel steps of the encoder, the MoE model, the Mamba
+    hybrid and the xLSTM on (2,2) and of a 6-head model on (1,4); the
+    forward and each tensor-parallel operator on (1,4); the cached passes
+    on (2,2) and (1,4), and under "decode_long" on (2,2); a Trainer through a one-rank failure and its
     resume, checkpointed for the elastic restores; EF all-reduce; GPipe;
     split-sequence decode."""
     import torch.distributed as dist
@@ -360,13 +574,26 @@ def ranks_four(rank: int, world: int, tmp: str) -> None:
     mesh = make_test_mesh((2, 2), device_type="cpu")
     tp = {((2, 2), name): sharded_step(name, TP_KINDS.get(name, "adamw"),
                                        mesh, record=True)
-          for name in ("hubert-xlarge", "qwen2-moe-a2.7b")}
+          for name in ("hubert-xlarge", "qwen2-moe-a2.7b",
+                       "jamba-1.5-large-398b", "xlstm-350m")}
     mesh = make_test_mesh((1, 4), device_type="cpu")
     tp[((1, 4), "internlm2-6-heads")] = sharded_step(
         "internlm2-6-heads", "adamw", mesh, record=True)
     save(tmp, "tp4", tp)
     tp_forward(mesh, tmp)
     tp_operators(mesh, tmp)
+
+    # the cached passes on (2,2) and (1,4), and "decode_long" on (2,2)
+    cached = {}
+    for shape in ((2, 2), (1, 4)):
+        mesh = make_test_mesh(shape, device_type="cpu")
+        for arch in CACHE_ARCHS:
+            cached[(shape, arch)] = cached_passes(arch, mesh)
+    mesh = make_test_mesh((2, 2), device_type="cpu")
+    for arch in LONG_ARCHS:
+        cached[((2, 2), arch, "decode_long")] = cached_passes(
+            arch, mesh, "decode_long")
+    save(tmp, "cached4", cached)
 
     # a Trainer on (2,2): straight, then a failure on rank 0 alone at
     # step 3 and a resume from the step-2 checkpoint
@@ -462,7 +689,8 @@ def ranks_two(rank: int, world: int, tmp: str) -> None:
     """2 ranks on (2,1): the masked encoder in 2 microbatches and the MoE
     model's balance loss, one sharded step each; the 4-rank checkpoint
     restored onto this mesh; on (1,2), tensor-parallel steps of the
-    encoder, the MoE model and the Mamba hybrid."""
+    encoder, the MoE model, the Mamba hybrid and the xLSTM, the cached
+    passes, and each recurrent mixer in float64."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.checkpoint.checkpointer import leaf_paths
     from repro_torch.distributed.sharding import is_dtensor
@@ -485,13 +713,16 @@ def ranks_two(rank: int, world: int, tmp: str) -> None:
                                opt=tree_numpy(tree["opt"]),
                                step=extras["step"], dtensor=kinds))
 
-    # tensor-parallel steps over 2 model ranks; Jamba's Mamba mixers
-    # gathered whole, its attention and MoE positions split
+    # tensor-parallel steps over 2 model ranks: Jamba's Mamba and the
+    # xLSTM's mLSTM / sLSTM mixers on their shards too
     mesh = make_test_mesh((1, 2), device_type="cpu")
     save(tmp, "tp2", {((1, 2), name): sharded_step(
         name, TP_KINDS.get(name, "adamw"), mesh, record=True)
                       for name in ("hubert-xlarge", "qwen2-moe-a2.7b",
-                                   "jamba-1.5-large-398b")})
+                                   "jamba-1.5-large-398b", "xlstm-350m")})
+    save(tmp, "cached2", {((1, 2), arch): cached_passes(arch, mesh)
+                          for arch in CACHE_ARCHS})
+    save(tmp, "mixers_f64", tp_mixers_f64(mesh))
     done()
 
 

@@ -33,9 +33,11 @@ train step (parameters and optimizer state as DTensors) must equal the
 unsharded step bit for bit per optimizer kind (the step computes
 tensor-parallel, at one model rank), a tensor-parallel forward must equal
 the unsharded one, and a sharded trainer's checkpoint must restore into an
-unsharded trainer, and the reverse, bit for bit.  The flash kernel on each
-tensor-parallel rank's heads, as strided views, must equal the whole
-call's heads bit for bit.
+unsharded trainer, and the reverse, bit for bit, and the reduced models'
+prefill, chunked prefill and greedy decode steps on the mesh (DTensor
+parameters, the state placed by the rules) must equal the unsharded
+passes bit for bit.  The flash kernel on each tensor-parallel rank's
+heads, as strided views, must equal the whole call's heads bit for bit.
 """
 import dataclasses
 
@@ -1067,3 +1069,31 @@ def test_checkpoints_restore_across_sharding_on_nccl(cuda, nccl_mesh,
         p, o, step = tr.try_restore()
         assert step == 3 and is_dtensor(p["embed"]) == sharded
         assert _tree_bits_equal({"params": p, "opt": o}, want)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2-moe-a2.7b",
+                                  "jamba-1.5-large-398b", "xlstm-350m",
+                                  "llava-next-34b"])
+def test_cached_passes_on_nccl_equal_unsharded(cuda, nccl_mesh, arch):
+    """The reduced model (bf16 compute) on the one-rank NCCL mesh from
+    DTensor parameters: ``prefill`` and ``prefill_chunked`` (2 chunks) of
+    1 x 64 tokens under "default", then ``chip_smoke.D1_DECODE`` greedy
+    ``decode_step``s under "decode" from the prefill's state, equal the
+    unsharded passes bit for bit (logits, tokens, every state leaf), the
+    recurrent families' forward too, and each mesh prefill launches the
+    flash kernel once per attention layer and chunk: phase D1's
+    ``chip_smoke.d1_cached`` at the reduced size.  Deterministic
+    algorithms are off for it: the mLSTM takes a float cumsum, which they
+    refuse on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, RunConfig
+    cs = _chip_smoke()
+    model = Model(get_config(arch, reduced=True), RunConfig())
+    params = model.init_on_device(0, cuda)
+    torch.use_deterministic_algorithms(False)
+    try:
+        r = cs.d1_cached(torch, np, cuda, model, nccl_mesh, params, 64,
+                         model.cfg.family in ("hybrid", "xlstm"))
+    finally:
+        torch.use_deterministic_algorithms(True)
+    assert len(r["tokens"]) == cs.D1_DECODE

@@ -9,10 +9,13 @@ cross-entropy equals JAX's ``cross_entropy`` and its gradient
 heads a rank's query heads read in each GQA case (a slice of whole
 groups, one head shared by several ranks, one head per query head where
 neither count divides the other), and attention over a rank's heads
-equals the whole attention's heads; the sharded step's plan
-(``keeps_model_shard``) keeps each leaf's model shard except the Mamba
-and xLSTM mixers', attention whose heads split mid-head, and leaves the
-model axis splits on a dimension the layers do not split.  The same
+equals the whole attention's heads; ``paired_halves``' exchange plan
+(``paired_plan``) at tp 1-4 against numpy slicing of the fused leaf;
+the sharded step's plan (``keeps_model_shard``) keeps each leaf's model
+shard, the Mamba, mLSTM and sLSTM mixers' included, except attention
+and xLSTM mixers whose heads split mid-head and leaves the model axis
+splits on a dimension the layers do not split
+(``whole_along_model``'s reasons).  The same
 operators across gloo ranks are in ``tests/test_torch_distributed.py``.
 """
 import dataclasses
@@ -81,6 +84,92 @@ def test_vocab_parallel_nll_matches_jax_cross_entropy(pad):
     np.testing.assert_allclose(zt.grad.numpy(), grad, rtol=0, atol=1e-7)
 
 
+@pytest.mark.parametrize("mg", [None, ONE])
+def test_paired_halves_and_reduce_scatter_are_identity_without_a_group(mg):
+    """No group, or one rank: ``paired_halves`` returns the fused leaf
+    itself (its x and z halves are the whole ones) and
+    ``reduce_scatter_to_model`` its input, values and gradients, and
+    ``gather_from_model`` along any dimension likewise."""
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.standard_normal((6, 8)).astype(np.float32))
+    a = w.clone().requires_grad_(True)
+    y = TP.paired_halves(a, mg)
+    assert y is a or torch.equal(y, w)
+    (y * 3.0).sum().backward()
+    assert torch.equal(a.grad, torch.full_like(w, 3.0))
+    x = torch.from_numpy(rng.standard_normal((2, 5, 4)).astype(np.float32))
+    for dim in (0, 1, -1):
+        for op in (TP.reduce_scatter_to_model, TP.gather_from_model):
+            a = x.clone().requires_grad_(True)
+            y = op(a, mg, dim)
+            assert torch.equal(y, x)
+            (y * 2.0).sum().backward()
+            assert torch.equal(a.grad, torch.full_like(x, 2.0))
+
+
+@pytest.mark.parametrize("tp", [1, 2, 3, 4])
+def test_paired_plan_matches_numpy_slicing(tp):
+    """``paired_plan``'s all-to-all, played out in numpy on a fused ``[d,
+    2 n]`` leaf cut into ``tp`` contiguous column shards (as the rules
+    place it): rank s receives, in rank order, exactly the columns of its
+    x block ``[s u, (s + 1) u)`` followed by its z block ``[n + s u, n +
+    (s + 1) u)``; every column of a shard goes to one rank (a rank sends
+    its own shard, no more); the reverse exchange puts each column back
+    where it came from (the backward).  tp 3 splits x and z across a
+    shard; n not divisible by tp raises."""
+    d, n = 3, 12
+    w = np.arange(d * 2 * n, dtype=np.float32).reshape(d, 2 * n)
+    width, u = 2 * n // tp, n // tp
+    shards = [w[:, r * width:(r + 1) * width] for r in range(tp)]
+    plan = TP.paired_plan(2 * n, tp)
+    got = [[] for _ in range(tp)]
+    for r in range(tp):
+        sent = [c for parts in plan[r] for a, b in parts
+                for c in range(a, b)]
+        assert sorted(sent) == list(range(width))
+        for s_ in range(tp):
+            for a, b in plan[r][s_]:
+                got[s_].append(shards[r][:, a:b])
+    for s_ in range(tp):
+        want = np.concatenate([w[:, s_ * u:(s_ + 1) * u],
+                               w[:, n + s_ * u:n + (s_ + 1) * u]], axis=1)
+        mine = np.concatenate(got[s_], axis=1)
+        assert np.array_equal(mine, want), (tp, s_)
+        # the reverse exchange: each received block back to its owner
+        i = 0
+        for r in range(tp):
+            for a, b in plan[r][s_]:
+                assert np.array_equal(mine[:, i:i + b - a],
+                                      shards[r][:, a:b])
+                i += b - a
+    if tp == 3:     # rank 1's shard: rank 2's x block, rank 0's z block
+        assert plan[1] == [[(u, 2 * u)], [], [(0, u)]]
+    with pytest.raises(ValueError):
+        TP.paired_plan(2 * 10, 4)
+
+
+def test_whole_along_model_reasons():
+    """The reasons left: heads that do not split over the model ranks
+    (attention, mLSTM, sLSTM: the reduced xLSTM's 2 heads over 4 ranks),
+    Mamba channels that do not (the reduced Jamba's 256 over 3); none for
+    a recurrent mixer whose heads or channels divide, nor outside the
+    blocks."""
+    x = get_config("xlstm-350m", True)
+    j = get_config("jamba-1.5-large-398b", True)
+    for path in ("blocks/pos0/mlstm/up_proj", "blocks/pos5/slstm/w_i"):
+        assert TM.whole_along_model(x, path, 2) is None
+        assert "2 heads do not split over 4" in TM.whole_along_model(
+            x, path, 4)
+    assert TM.whole_along_model(j, "blocks/pos0/mamba/in_proj", 4) is None
+    assert TM.whole_along_model(j, "blocks/pos0/mamba/in_proj", 2) is None
+    assert "256 Mamba channels do not split over 3" in TM.whole_along_model(
+        j, "blocks/pos0/mamba/in_proj", 3)
+    assert "do not split" in TM.whole_along_model(j, "blocks/pos4/attn/wq",
+                                                  3)
+    assert TM.whole_along_model(j, "embed", 3) is None
+    assert TM.whole_along_model(j, "blocks/pos1/moe/w_up", 3) is None
+
+
 def test_splits_says_whole_or_shard():
     """A weight dimension arrives whole (no split) or as one model rank's
     shard; any other width raises."""
@@ -146,20 +235,24 @@ def _plan(cfg, sizes, rules="default"):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_plan_keeps_model_shards(arch):
     """On (2,4) and (1,2): every leaf the model axis splits is computed on
-    as the rank's shard, except the Mamba and xLSTM mixers' (gathered
-    whole: no tensor-parallel form yet) and, where ``n_heads`` does not
-    split over the model ranks, attention's; no leaf the model axis
-    leaves whole is marked kept."""
+    as the rank's shard (the Mamba, mLSTM and sLSTM mixers' too), except,
+    where ``n_heads`` does not split over the model ranks, those of
+    attention and of the xLSTM mixers (the reduced xLSTM's 2 heads over 4
+    ranks); no leaf the model axis leaves whole is marked kept."""
     cfg = get_config(arch, True)
     for sizes in ((2, 4), (1, 2)):
         kept, split = _plan(cfg, sizes)
         assert split, arch
         for path, k in kept.items():
-            mixer = any(f"/{m}/" in path for m in TM.RECURRENT_MIXERS)
-            mid = "/attn/" in path and cfg.n_heads % sizes[1]
-            assert k == (path in split and not mixer and not mid), path
-        if cfg.family in ("hybrid", "xlstm"):
-            assert any(p in split and not kept[p] for p in kept)
+            headed = any(f"/{m}/" in path for m in TM.HEADED_MIXERS)
+            mid = headed and cfg.n_heads % sizes[1]
+            assert k == (path in split and not mid), path
+        mixers = [p for p in split if any(f"/{m}/" in p for m in
+                                          ("mamba", "mlstm", "slstm"))]
+        assert bool(mixers) == (cfg.family in ("hybrid", "xlstm"))
+        if mixers:
+            assert all(kept[p] for p in mixers) == (
+                cfg.family == "hybrid" or sizes[1] == 2), arch
         assert kept["embed"] and kept.get("lm_head", True)
 
 
