@@ -110,6 +110,8 @@ FINGERPRINT_EXEMPT: Dict[str, str] = {
     "kernels/tlb_sweep/_build.py": "the TLB kernel's source list and its "
                                    "ctypes signatures; the sources are "
                                    "folded by content",
+    "tracing.py": "profiler spans around host work: they mark time on the "
+                  "profiler's timeline and change no result",
 }
 
 

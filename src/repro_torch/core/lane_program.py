@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..tracing import span
 from .page_table import (DynamicMapping, Mapping, MultiTenantMapping,
                          NestedMapping, ParityWorld, cluster_bitmap,
                          huge_page_backed, next_pow2 as _next_pow2)
@@ -384,14 +385,15 @@ def pack_lanes(cells: Sequence["SweepCellLike"], device_count: int = 1):
     # fill records: one per (world, source, fill profile)
     fill_recs: List[np.ndarray] = []
     fill_rec_id: Dict[Tuple[int, int, tuple], int] = {}
-    for c in cells:
-        w = world_index[id(c.mapping)]
-        key = _fill_profile_key(c.spec)
-        for e, m in enumerate(plans[w].sources):
-            fk = (w, e, key)
-            if fk not in fill_rec_id:
-                fill_rec_id[fk] = len(fill_recs)
-                fill_recs.append(_fill_profile(m, key, P))
+    with span("sweep.pack.fills"):
+        for c in cells:
+            w = world_index[id(c.mapping)]
+            key = _fill_profile_key(c.spec)
+            for e, m in enumerate(plans[w].sources):
+                fk = (w, e, key)
+                if fk not in fill_rec_id:
+                    fill_rec_id[fk] = len(fill_recs)
+                    fill_recs.append(_fill_profile(m, key, P))
 
     # cluster bitmaps: one per (world, source).  The stack is always P wide
     # (not 1) so suites with and without cluster lanes share an executable;
@@ -400,7 +402,7 @@ def pack_lanes(cells: Sequence["SweepCellLike"], device_count: int = 1):
     clus_wide = need_clus or P * 4 * REC_FLOOR <= REC_PAD_BUDGET
     clus_recs: List[np.ndarray] = [np.zeros(P if clus_wide else 1, np.int32)]
     clus_rec_id: Dict[Tuple[int, int], int] = {}
-    if need_clus:
+    with span("sweep.pack.clusters"):
         for c in cells:
             if c.spec.side != "cluster":
                 continue
@@ -515,10 +517,11 @@ def pack_lanes(cells: Sequence["SweepCellLike"], device_count: int = 1):
                                              and s.ctx_policy == "flush")
                 lanes["seg_fasid"][i, seg] = (p.recycled[e]
                                               and s.ctx_policy == "tag")
-    stacks = dict(maps=_pad_stack(map_recs),
-                  fills=_pad_stack(fill_recs, floor=FILL_REC_FLOOR),
-                  clus=_pad_stack(clus_recs), dirty=_pad_stack(dirty_recs),
-                  trace=trace_stack)
+    with span("sweep.pack.stack"):
+        stacks = dict(maps=_pad_stack(map_recs),
+                      fills=_pad_stack(fill_recs, floor=FILL_REC_FLOOR),
+                      clus=_pad_stack(clus_recs),
+                      dirty=_pad_stack(dirty_recs), trace=trace_stack)
     return lanes, stacks, (L, max_sets, max_ways), seg_bounds
 
 

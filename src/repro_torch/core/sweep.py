@@ -50,6 +50,7 @@ import torch
 
 from .._device import resolve_device
 from ..kernels.tlb_sweep.ops import run_lanes
+from ..tracing import span
 from .lane_program import (C_COAL, C_CYC, C_L1, C_PRED, C_PROBE, C_REG,
                            C_SHOOT, C_WALK, LANE_SHARE_MAX,
                            init_batched_state, pack_lanes)
@@ -362,11 +363,12 @@ DEFAULT_CACHE_DIR = os.path.join("results", "sweep_cache_torch")
 def pack_batch(sub: Sequence[SweepCell]):
     """Pack one batch of cells: ``(lanes, stacks, st0, seg_bounds)`` as
     numpy arrays (the reference's packing, one device)."""
-    lanes, stacks, (L, max_sets, max_ways), seg_bounds = pack_lanes(sub)
-    st0 = init_batched_state(
-        L, max_sets, max_ways, lanes["pred0"], lanes["asid0"],
-        with_ctlb=any(c.spec.kind == "cache-tlb" for c in sub),
-        with_dp=any(c.spec.kind == "dead-protect" for c in sub))
+    with span("sweep.pack"):
+        lanes, stacks, (L, max_sets, max_ways), seg_bounds = pack_lanes(sub)
+        st0 = init_batched_state(
+            L, max_sets, max_ways, lanes["pred0"], lanes["asid0"],
+            with_ctlb=any(c.spec.kind == "cache-tlb" for c in sub),
+            with_dp=any(c.spec.kind == "dead-protect" for c in sub))
     return lanes, stacks, st0, seg_bounds
 
 
@@ -398,33 +400,38 @@ def _oracle_result(cell: SweepCell) -> SimResult:
     return run_method_dynamic(cell.spec, w, cell.trace)
 
 
-def _run_batch(sub: List[SweepCell], device: torch.device
-               ) -> List[SimResult]:
-    """Pack and simulate one batch; per-cell results in ``sub`` order."""
+def _run_batch(sub: List[SweepCell], device: torch.device,
+               fstats: Optional[Dict[str, int]] = None) -> List[SimResult]:
+    """Pack and simulate one batch; per-cell results in ``sub`` order.
+    Adds the packed arrays' bytes to ``fstats["packed_bytes"]``."""
     if _BACKEND_FAULT_HOOK is not None:
         _BACKEND_FAULT_HOOK(sub, device.type)
     lanes, stacks, st0, seg_bounds = pack_batch(sub)
+    if fstats is not None:
+        fstats["packed_bytes"] += sum(a.nbytes for d in (lanes, stacks, st0)
+                                      for a in d.values())
     stF, ppns = run_lanes(lanes, stacks, st0, seg_bounds, device=device)
     counters = stF["counters"].cpu().numpy()
     cov_samples = stF["cov_samples"].cpu().numpy()
     ppns = ppns.cpu().numpy()
     out = []
-    for j, c in enumerate(sub):
-        t_real = c.trace.shape[0]
-        cnt = counters[j]
-        out.append(SimResult(
-            name=c.spec.name, accesses=t_real,
-            l1_hits=int(cnt[C_L1]),
-            l2_regular_hits=int(cnt[C_REG]),
-            l2_coalesced_hits=int(cnt[C_COAL]),
-            walks=int(cnt[C_WALK]),
-            aligned_probes=int(cnt[C_PROBE]),
-            pred_correct=int(cnt[C_PRED]),
-            cycles=int(cnt[C_CYC]),
-            coverage_mean=float(np.mean(cov_samples[j])),
-            ppn=ppns[j, :t_real],
-            shootdowns=int(cnt[C_SHOOT]),
-        ))
+    with span("sweep.unpack"):
+        for j, c in enumerate(sub):
+            t_real = c.trace.shape[0]
+            cnt = counters[j]
+            out.append(SimResult(
+                name=c.spec.name, accesses=t_real,
+                l1_hits=int(cnt[C_L1]),
+                l2_regular_hits=int(cnt[C_REG]),
+                l2_coalesced_hits=int(cnt[C_COAL]),
+                walks=int(cnt[C_WALK]),
+                aligned_probes=int(cnt[C_PROBE]),
+                pred_correct=int(cnt[C_PRED]),
+                cycles=int(cnt[C_CYC]),
+                coverage_mean=float(np.mean(cov_samples[j])),
+                ppn=ppns[j, :t_real],
+                shootdowns=int(cnt[C_SHOOT]),
+            ))
     return out
 
 
@@ -440,7 +447,7 @@ def _run_batch_resilient(sub: List[SweepCell], device: torch.device,
     the exception, and is counted in ``fstats``.
     """
     try:
-        return _run_batch(sub, device)
+        return _run_batch(sub, device, fstats)
     except BackendFault as e:
         if len(sub) == 1:
             warnings.warn(f"run_sweep: {e!r}; cell {sub[0].spec.name!r} "
@@ -478,8 +485,14 @@ def run_sweep(cells: Sequence[SweepCell], *, cache: bool = True,
     kernel; raises ``RuntimeError`` without a card) or ``"cpu"`` (the
     plain torch version).  An injected :class:`BackendFault` goes down
     the recovery ladder (:func:`_run_batch_resilient`); ``stats`` counts
-    its ``bisections`` and ``oracle_fallbacks``, and ``cache_quarantined``
-    the corrupt cache entries moved aside and recomputed.  With ``cache``
+    its ``bisections`` and ``oracle_fallbacks``, ``cache_quarantined``
+    the corrupt cache entries moved aside and recomputed, and
+    ``packed_bytes`` the bytes of every array packed for a launch (each
+    batch, and each part the ladder packs again): the packing's work,
+    and on the card the bytes uploaded.  With a profiler recording, the
+    host work carries spans: ``sweep.pack`` (with ``sweep.pack.fills``,
+    ``sweep.pack.clusters`` and ``sweep.pack.stack`` inside) and
+    ``sweep.unpack``, one each a packed batch.  With ``cache``
     enabled, previously simulated cells (same spec, world/trace *content*
     and code version — see :func:`cell_key`) are loaded from ``cache_dir``
     and skipped; ``cache=False`` bypasses the cache.
@@ -503,7 +516,8 @@ def run_sweep(cells: Sequence[SweepCell], *, cache: bool = True,
     results: List[Optional[SimResult]] = [None] * len(cells)
     todo: List[int] = []
     hits = 0
-    fstats = dict(cache_quarantined=0, bisections=0, oracle_fallbacks=0)
+    fstats = dict(cache_quarantined=0, bisections=0, oracle_fallbacks=0,
+                  packed_bytes=0)
     digests: Dict[int, str] = {}   # id-keyed; cells keep the arrays alive
     keys = [cell_key(c, digests) if cache else "" for c in cells]
     for i, c in enumerate(cells):

@@ -51,7 +51,8 @@ LANE_PROGRAM = f"{PKG}/core/lane_program.py"
 
 
 def _clone_files():
-    files = [f"{PKG}/_device.py", f"{PKG}/kernels/_nvcc.py",
+    files = [f"{PKG}/_device.py", f"{PKG}/tracing.py",
+             f"{PKG}/kernels/_nvcc.py",
              "tests/_torch_helpers.py", "docs/methods.md", "chip_smoke.py",
              framework.SUPPRESSION_FILE]
     files += [f"{PKG}/core/{p.name}"

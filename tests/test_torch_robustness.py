@@ -275,7 +275,7 @@ def test_a_launch_failure_raises_through_run_sweep(sweep_cells,
     cells, _ = sweep_cells
     calls = []
 
-    def failing(sub, device):
+    def failing(sub, device, fstats=None):
         calls.append(len(sub))
         raise RuntimeError("tlb_sweep kernel launch failed: "
                            "too many resources requested for launch")
@@ -297,7 +297,7 @@ def test_the_ladder_absorbs_no_refusal_and_no_build_failure(
     cells, _ = sweep_cells
     calls = []
 
-    def broken(sub, device):
+    def broken(sub, device, fstats=None):
         calls.append(len(sub))
         raise exc
 
