@@ -801,17 +801,21 @@ def lane_spread(cycles, cells, kinds_of, sm_mhz: float) -> dict:
                                    for k, v in per_access.items()})
 
 
-#: the packing functions ``pack_breakdown`` times, by module
+#: the packing functions ``pack_breakdown`` times, by module (the host
+#: path builds the records with ``_fill_profile`` and ``cluster_bitmap``,
+#: the card path their plan rows with ``_plan_row`` and ``_record_plan``)
 PACK_PARTS = (("lane_program", "_map_record"), ("lane_program", "_fill_profile"),
               ("lane_program", "_pad_stack"), ("lane_program", "cluster_bitmap"),
+              ("lane_program", "_plan_row"), ("lane_program", "_record_plan"),
               ("sweep", "init_batched_state"))
 
 
-def pack_breakdown(cells):
-    """``pack_batch(cells)`` timed by the host clock and split by function:
-    the seconds spent in each of ``PACK_PARTS`` (``_pad_stack`` holds the
-    stacking of the record stacks) and the rest.  Wraps the functions for
-    the one call and puts them back.  Returns ``(packed, seconds)``."""
+def pack_breakdown(cells, device=None):
+    """``pack_batch(cells, device)`` timed by the host clock and split by
+    function: the seconds spent in each of ``PACK_PARTS`` (``_pad_stack``
+    holds the stacking of the record stacks) and the rest.  Wraps the
+    functions for the one call and puts them back.  Returns ``(packed,
+    seconds)``."""
     import importlib
     spent, saved = {}, []
 
@@ -832,7 +836,7 @@ def pack_breakdown(cells):
             setattr(mod, name, timed(f, name))
         sweep = importlib.import_module("repro_torch.core.sweep")
         t = time.perf_counter()
-        packed = sweep.pack_batch(cells)
+        packed = sweep.pack_batch(cells, device)
         total = time.perf_counter() - t
     finally:
         for mod, name, f in saved:
@@ -840,6 +844,45 @@ def pack_breakdown(cells):
     spent["rest"] = total - sum(spent.values())
     spent["total"] = total
     return packed, spent
+
+
+def records_bound_bytes(plan, P: int) -> int:
+    """Bytes the record kernel must move for ``plan``: every fill row
+    (``FILL_REC_WIDTH`` int32) and cluster word it writes, pads included,
+    and each map record its real rows read, once."""
+    import numpy as np
+    from repro_torch.core import lane_program as lp
+    rows = np.asarray(plan.rows)
+    real = rows[:, lp.PLAN_CODE] != lp.REC_CODE["zero"]
+    n_maps = np.unique(rows[real, lp.PLAN_MAP]).size
+    n_clus = rows.shape[0] - plan.n_fill
+    return 4 * (plan.n_fill * P * lp.FILL_REC_WIDTH
+                + n_clus * plan.clus_width
+                + n_maps * P * lp.MAP_REC_WIDTH)
+
+
+def records_timing(plan, maps, built) -> dict:
+    """The record kernel (``ops.build_records``) on the card at the
+    batch's shapes: its time (CUDA events, median of 5), its byte bound
+    at ``HBM_BYTES_PER_S``, the plain version's time on the card (median
+    of 3), and the plain version's stacks equal to ``built``, the stacks
+    the kernel built for the sweep.  Fails where they differ."""
+    import torch
+    from repro_torch.kernels.tlb_sweep.ops import (build_records,
+                                                   build_records_ref)
+    ms = cuda_time_ms(lambda: build_records(plan, maps), 5)
+    plain_ms = cuda_time_ms(lambda: build_records_ref(plan, maps), 3)
+    ref = build_records_ref(plan, maps)
+    for k in ("fills", "clus"):
+        if built[k].shape != ref[k].shape or not torch.equal(built[k],
+                                                             ref[k]):
+            fail(f"record kernel: the {k} stack differs from the plain "
+                 "version")
+    n_bytes = records_bound_bytes(plan, maps.shape[1])
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bytes=n_bytes, of_bound=ms / bound_ms,
+                records=plan.n_real, rows=int(plan.rows.shape[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -1140,9 +1183,9 @@ def w1_phase(ref: dict, dev, sm_mhz: float) -> dict:
         packed = []
         real_pack = sweep_mod.pack_batch
 
-        def timed_pack(sub):
+        def timed_pack(sub, device=None):
             t = time.perf_counter()
-            p = real_pack(sub)
+            p = real_pack(sub, device)
             packed.append((p, time.perf_counter() - t, list(sub)))
             return p
         n_batches = sum(len(sweep_mod.batches_of(plan.cells,
@@ -1164,6 +1207,9 @@ def w1_phase(ref: dict, dev, sm_mhz: float) -> dict:
         if counts["tlb_sweep"] != n_batches:
             raise ValueError(f"{section}: {counts['tlb_sweep']} TLB kernel "
                              f"launches for {n_batches} batches")
+        if counts["tlb_records"] != n_batches:
+            raise ValueError(f"{section}: {counts['tlb_records']} record "
+                             f"kernel launches for {n_batches} batches")
         if counts["paged_attention"] or counts["flash_attention"]:
             raise ValueError(f"{section}: the sweep launched an attention "
                              "kernel")
@@ -2189,6 +2235,7 @@ def launch_counts() -> dict:
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.tlb_sweep import LAUNCHES as TLB_LAUNCHES
     return dict(tlb_sweep=TLB_LAUNCHES.get("tlb_sweep", 0),
+                tlb_records=TLB_LAUNCHES.get("tlb_records", 0),
                 paged_attention=pa_ops.LAUNCHES["paged_attention"],
                 flash_attention=fa_ops.LAUNCHES["flash_attention"])
 
@@ -2329,7 +2376,12 @@ def main() -> int:
         tlb_ptxas = check_tlb_ptxas(_build.ptxas_report())
     except ValueError as e:
         fail(f"TLB kernel ptxas: {e}")
-    for name, f in sorted(tlb_ptxas.items()):
+    rec_ptxas = {k: v for k, v in ptxas_functions(
+        _build.ptxas_report()).items() if "tlb_records_kernel" in k}
+    if len(rec_ptxas) != 1:
+        fail(f"expected the tlb_records_kernel in the ptxas report, found "
+             f"{sorted(rec_ptxas)}")
+    for name, f in sorted({**tlb_ptxas, **rec_ptxas}.items()):
         print(f"  {name}: {f['registers']} registers, {f['stack']} B stack "
               f"frame, {f['spill_stores']}/{f['spill_loads']} B spill "
               f"stores/loads")
@@ -2379,6 +2431,10 @@ def main() -> int:
           f"{sweep.stats}, launches {launches}")
     if launches["tlb_sweep"] < 1:
         fail("the main path did not launch the tlb_sweep kernel")
+    if launches["tlb_records"] != launches["tlb_sweep"] or \
+            sweep.stats["records_on_card"] < 1:
+        fail("the card path did not build each batch's records on the card "
+             f"once ({launches}, stats {sweep.stats})")
     if launches["paged_attention"] or launches["flash_attention"]:
         fail("the sweep launched an attention kernel")
     check_no_rung("phase 2", sweep.stats)
@@ -2454,22 +2510,31 @@ def main() -> int:
 
     # -------------------------------------------------------- 4. timing
     t0 = phase("4. timing (CUDA events, median of 5 after a warm-up)")
-    # host clock: where run_sweep's wall goes besides the kernel
-    (lanes, stacks, st0, sb), pack_s = pack_breakdown(cells)
+    # host clock: where run_sweep's wall goes besides the kernel (the card
+    # path: the host packs a record plan, the card builds the records)
+    (lanes, stacks, st0, sb), pack_s = pack_breakdown(cells, dev)
     t_pack = pack_s["total"]
     t1 = time.time()
-    lt, stt, s0t = as_tensors(lanes, stacks, st0, dev)
+    lt, stt, s0t = as_tensors(lanes, stacks, st0, dev)  # builds the records
     torch.cuda.synchronize()
     t_upload = time.time() - t1
     t1 = time.time()
     launch = prepare_cuda(lt, stt, s0t, sb)
     torch.cuda.synchronize()
     t_checks = time.time() - t1
-    print(f"host, Table 4 batch: pack_batch {t_pack:.3f} s, upload "
-          f"{t_upload:.3f} s, launch checks {t_checks:.3f} s (run_sweep "
-          f"wall {wall:.3f} s)")
+    print(f"host, Table 4 batch: pack_batch {t_pack:.3f} s, upload and "
+          f"records {t_upload:.3f} s, launch checks {t_checks:.3f} s "
+          f"(run_sweep wall {wall:.3f} s)")
     print("pack_batch by function (host clock, s): " + ", ".join(
         f"{k} {v:.3f}" for k, v in pack_s.items()))
+    rec = records_timing(stacks["plan"], stt["maps"], stt)
+    print(f"record kernel, Table 4 batch ({rec['records']} records, "
+          f"{rec['rows']} rows with pads, P={stt['maps'].shape[1]}): "
+          f"{rec['ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms by bytes "
+          f"({rec['bytes']} B at {HBM_BYTES_PER_S:.3g} B/s), "
+          f"{rec['of_bound']:.2f}x; plain version on the card "
+          f"{rec['plain_ms']:.1f} ms (median of 3); equal to the plain "
+          "version")
     ms = cuda_time_ms(launch, 5)
     sm_mhz = float(smi("clocks.max.sm").split()[0])
     spread = lane_spread(launch.cycles.cpu().numpy(), cells, kinds_of,
@@ -2525,6 +2590,7 @@ def main() -> int:
                    lane_cycles=spread,
                    host_s=dict(pack_batch=t_pack, upload=t_upload,
                                launch_checks=t_checks),
+                   records=rec,
                    pack_batch_s=pack_s,
                    ptxas=tlb_ptxas)
     del (sweep, cells, worlds, lanes, stacks, st0, lt, stt, s0t, launch,
@@ -4986,10 +5052,10 @@ def chaos_phases(torch, np, dev, model32, params32):
     for sw in sweeps:
         check_no_rung(f"R1 {sw['scenario']}", sw["result"].stats)
     n_batches = sum(sw["result"].stats["n_batches"] for sw in sweeps)
-    if launches["R1"] != dict(tlb_sweep=n_batches, paged_attention=0,
-                              flash_attention=0):
+    if launches["R1"] != dict(tlb_sweep=n_batches, tlb_records=n_batches,
+                              paged_attention=0, flash_attention=0):
         fail(f"R1: launches {launches['R1']}, want {n_batches} of the TLB "
-             "kernel only")
+             "kernel and of the record kernel only")
     rows = chaos.parity_rows(sweeps)
     print(f"{n} cells equal to the JAX fixture (counters, coverage, ppn "
           f"sha256), every translation the live mapping's, ecc == "
@@ -5026,7 +5092,8 @@ def chaos_phases(torch, np, dev, model32, params32):
             if not _same_bits(r, c):
                 fail(f"R2 {what}: {r.name} differs from the clean run")
     if not (n_clean >= 1 and n_bis > n_clean and n_orc >= 1
-            and launches["R2"]["tlb_sweep"] == n_clean + n_bis + n_orc):
+            and launches["R2"]["tlb_sweep"] == n_clean + n_bis + n_orc
+            and launches["R2"]["tlb_records"] == n_clean + n_bis + n_orc):
         fail(f"R2: launches clean {n_clean}, bisection {n_bis}, oracle "
              f"{n_orc}, in all {launches['R2']}: the re-launches do not "
              "show")

@@ -8,7 +8,12 @@ lane is, in three layers:
    copied from the reference: dedup worlds/traces, precompute the
    per-``(world, epoch)`` map/fill/cluster records, pad every method onto
    one array layout, and bucket shapes exactly as the reference does (so
-   the packed batches, and the results, are the same key for key).
+   the packed batches, and the results, are the same key for key).  For
+   the card (``record_plan=True``) the fill and cluster records are not
+   built here: each is a row of a :class:`RecordPlan` (its map record, its
+   source's size, its profile and K classes), and the card derives the
+   records from the uploaded map records
+   (``kernels/tlb_sweep/ops.py::build_records``).
 2. **The step** (:func:`step_access`, :func:`shoot_lane`,
    :func:`switch_lane`) — rewritten on ``torch.int32`` tensors with a
    leading lane axis: ``torch.where`` and per-lane gathers/scatters in
@@ -131,15 +136,20 @@ REC_FLOOR = 8
 REC_PAD_BUDGET = 64 << 20
 
 
+def _pad_count(n: int, rec_bytes: int, floor: int = REC_FLOOR,
+               budget: int = REC_PAD_BUDGET) -> int:
+    """The count bucket ``n`` records of ``rec_bytes`` each are padded to."""
+    b = max(floor, _next_pow2(n))
+    while b > n and b * rec_bytes > budget:
+        b //= 2
+    return max(b, n)
+
+
 def _pad_stack(recs: List[np.ndarray], floor: int = REC_FLOOR,
                budget: int = REC_PAD_BUDGET) -> np.ndarray:
     """Stack ``recs`` padded with zero records to a shared count bucket."""
     n = len(recs)
-    b = max(floor, _next_pow2(n))
-    rec_bytes = recs[0].nbytes
-    while b > n and b * rec_bytes > budget:
-        b //= 2
-    b = max(b, n)
+    b = _pad_count(n, recs[0].nbytes, floor, budget)
     pad = [np.zeros_like(recs[0])] * (b - n)
     return np.stack(recs + pad)
 
@@ -244,6 +254,77 @@ def _fill_profile(m: Mapping, key, P: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# The record plan: the fill and cluster records as the card builds them
+# ---------------------------------------------------------------------------
+
+# One int32 row per record of the fill and cluster stacks: its map record
+# (an index of the ``maps`` stack), its source's ``n_pages``, its profile
+# code, then its K classes (``-1`` past the last).  The CUDA kernel
+# (``kernels/tlb_sweep/csrc/tlb_records.cuh``) spells the columns and the
+# codes as ``#define``s that ``tests/test_torch_records.py`` holds to these.
+PLAN_FIELDS = ("map", "n_pages", "code")
+PLAN_MAP, PLAN_PAGES, PLAN_CODE = range(len(PLAN_FIELDS))
+# profile codes; "zero" is a pad record (all zero, as _pad_stack pads)
+REC_CODES = ("zero", "regular", "kaligned", "colt", "thp", "subregion",
+             "cluster")
+REC_CODE = {name: i for i, name in enumerate(REC_CODES)}
+_KEY_CODE = {"reg": REC_CODE["regular"], "ka": REC_CODE["kaligned"],
+             "colt": REC_CODE["colt"], "thp": REC_CODE["thp"],
+             "subr": REC_CODE["subregion"], "clus": REC_CODE["cluster"]}
+_ZERO_ROW = (0, 0, REC_CODE["zero"], ())
+
+
+@dataclasses.dataclass(frozen=True)
+class RecordPlan:
+    """What the card needs to build a batch's fill and cluster stacks.
+
+    ``rows[:n_fill]`` are the fill stack's records in its order
+    (``[n_fill, P, FILL_REC_WIDTH]``), ``rows[n_fill:]`` the cluster
+    stack's (``[n_clus, clus_width]``), pad records included, each a row
+    of ``PLAN_FIELDS`` then the K classes.  It is host data, like the
+    segment bounds: the wrapper reads the shapes from it and uploads the
+    rows itself."""
+
+    rows: np.ndarray          # [n_fill + n_clus, len(PLAN_FIELDS) + kw]
+    n_fill: int
+    clus_width: int           # vpns a cluster record holds: P, or 1
+
+    @property
+    def nbytes(self) -> int:
+        return self.rows.nbytes
+
+    @property
+    def n_real(self) -> int:
+        """Records that are not pads: the ones built from a map record."""
+        return int((self.rows[:, PLAN_CODE] != REC_CODE["zero"]).sum())
+
+
+def _plan_row(map_id: int, m: Mapping, key) -> tuple:
+    """The plan row of the record of profile ``key`` over source ``m``
+    (``("clus",)`` for a cluster bitmap)."""
+    return (map_id, m.n_pages, _KEY_CODE[key[0]],
+            tuple(key[1]) if key[0] == "ka" else ())
+
+
+def _record_plan(fill_rows: List[tuple], clus_rows: List[tuple], P: int,
+                 clus_width: int) -> RecordPlan:
+    """The rows padded to the counts ``_pad_stack`` pads the stacks to."""
+    word = np.dtype(np.int32).itemsize
+    n_fill = _pad_count(len(fill_rows), P * FILL_REC_WIDTH * word,
+                        floor=FILL_REC_FLOOR)
+    n_clus = _pad_count(len(clus_rows), clus_width * word)
+    kw = max([KMIN_SLOTS] + [len(r[3]) for r in fill_rows])
+    nf = len(PLAN_FIELDS)
+    rows = np.zeros((n_fill + n_clus, nf + kw), np.int32)
+    rows[:, nf:] = -1                   # pads: map 0, 0 pages, code zero
+    for i, (mid, n, code, ks) in [*enumerate(fill_rows),
+                                  *enumerate(clus_rows, n_fill)]:
+        rows[i, :nf] = (mid, n, code)
+        rows[i, nf: nf + len(ks)] = ks
+    return RecordPlan(rows=rows, n_fill=n_fill, clus_width=clus_width)
+
+
+# ---------------------------------------------------------------------------
 # Lane packing
 # ---------------------------------------------------------------------------
 
@@ -340,7 +421,8 @@ def _world_plan(world) -> _WorldPlan:
                       (None,), (False,))
 
 
-def pack_lanes(cells: Sequence["SweepCellLike"], device_count: int = 1):
+def pack_lanes(cells: Sequence["SweepCellLike"], device_count: int = 1,
+               record_plan: bool = False):
     """Dedup worlds/traces/fill-profiles; pack per-lane params to arrays.
 
     Every world is a schedule-segment *sequence* (a static ``Mapping`` is
@@ -354,6 +436,10 @@ def pack_lanes(cells: Sequence["SweepCellLike"], device_count: int = 1):
     static tuple; a batch with no segmented lane collapses to one segment
     and never runs the shootdown/switch pass.  Returns ``(lanes, stacks,
     (L, max_sets, max_ways), seg_bounds)``.
+
+    With ``record_plan`` the ``fills`` and ``clus`` stacks are left to the
+    card: ``stacks["plan"]``, a :class:`RecordPlan`, stands in their place
+    and every other array is the same.
     """
     worlds: List = []
     world_index: Dict[int, int] = {}
@@ -393,14 +479,18 @@ def pack_lanes(cells: Sequence["SweepCellLike"], device_count: int = 1):
                 fk = (w, e, key)
                 if fk not in fill_rec_id:
                     fill_rec_id[fk] = len(fill_recs)
-                    fill_recs.append(_fill_profile(m, key, P))
+                    fill_recs.append(
+                        _plan_row(map_rec_id[(w, e)], m, key) if record_plan
+                        else _fill_profile(m, key, P))
 
     # cluster bitmaps: one per (world, source).  The stack is always P wide
     # (not 1) so suites with and without cluster lanes share an executable;
     # the budget guard below shrinks it back for paper-scale footprints.
     need_clus = any(c.spec.side == "cluster" for c in cells)
     clus_wide = need_clus or P * 4 * REC_FLOOR <= REC_PAD_BUDGET
-    clus_recs: List[np.ndarray] = [np.zeros(P if clus_wide else 1, np.int32)]
+    clus_width = P if clus_wide else 1
+    clus_recs: List = [_ZERO_ROW if record_plan
+                       else np.zeros(clus_width, np.int32)]
     clus_rec_id: Dict[Tuple[int, int], int] = {}
     with span("sweep.pack.clusters"):
         for c in cells:
@@ -409,9 +499,13 @@ def pack_lanes(cells: Sequence["SweepCellLike"], device_count: int = 1):
             w = world_index[id(c.mapping)]
             for e, m in enumerate(plans[w].sources):
                 if (w, e) not in clus_rec_id:
+                    clus_rec_id[(w, e)] = len(clus_recs)
+                    if record_plan:
+                        clus_recs.append(_plan_row(map_rec_id[(w, e)], m,
+                                                   ("clus",)))
+                        continue
                     rec = np.zeros(P, np.int32)
                     rec[: m.n_pages] = cluster_bitmap(m)
-                    clus_rec_id[(w, e)] = len(clus_recs)
                     clus_recs.append(rec)
 
     # dirty records (prefix sums): one per (world, segment) whose plan
@@ -518,10 +612,16 @@ def pack_lanes(cells: Sequence["SweepCellLike"], device_count: int = 1):
                 lanes["seg_fasid"][i, seg] = (p.recycled[e]
                                               and s.ctx_policy == "tag")
     with span("sweep.pack.stack"):
-        stacks = dict(maps=_pad_stack(map_recs),
-                      fills=_pad_stack(fill_recs, floor=FILL_REC_FLOOR),
-                      clus=_pad_stack(clus_recs),
-                      dirty=_pad_stack(dirty_recs), trace=trace_stack)
+        if record_plan:
+            stacks = dict(maps=_pad_stack(map_recs),
+                          dirty=_pad_stack(dirty_recs), trace=trace_stack,
+                          plan=_record_plan(fill_recs, clus_recs, P,
+                                            clus_width))
+        else:
+            stacks = dict(maps=_pad_stack(map_recs),
+                          fills=_pad_stack(fill_recs, floor=FILL_REC_FLOOR),
+                          clus=_pad_stack(clus_recs),
+                          dirty=_pad_stack(dirty_recs), trace=trace_stack)
     return lanes, stacks, (L, max_sets, max_ways), seg_bounds
 
 

@@ -11,8 +11,10 @@ objects bit-identical to the JAX package's ``run_sweep``.
 
 Execution goes through :func:`repro_torch.kernels.tlb_sweep.ops.run_lanes`:
 on the card (``device="cuda"``, the default) one launch of the CUDA
-TLB-sweep kernel per packed batch; with ``device="cpu"`` the plain torch
-version.  Asking for the card on a machine without one raises.
+kernel that builds the batch's fill and cluster records from its uploaded
+map records, then one of the CUDA TLB-sweep kernel, per packed batch;
+with ``device="cpu"`` the host packs every record and the plain torch
+version runs.  Asking for the card on a machine without one raises.
 
 A batch failed by the chaos harness goes down the recovery ladder
 (:func:`_run_batch_resilient`): the kernel again on each half of the batch
@@ -189,6 +191,8 @@ _FINGERPRINT_SOURCES = (
     "kernels/tlb_sweep/ref.py",
     "kernels/tlb_sweep/csrc/tlb_lane.cuh",
     "kernels/tlb_sweep/csrc/tlb_sweep.cu",
+    "kernels/tlb_sweep/csrc/tlb_records.cuh",
+    "kernels/tlb_sweep/csrc/tlb_records.cu",
 )
 
 
@@ -360,11 +364,17 @@ def _cache_store(path: str, r: SimResult) -> None:
 DEFAULT_CACHE_DIR = os.path.join("results", "sweep_cache_torch")
 
 
-def pack_batch(sub: Sequence[SweepCell]):
+def pack_batch(sub: Sequence[SweepCell], device=None):
     """Pack one batch of cells: ``(lanes, stacks, st0, seg_bounds)`` as
-    numpy arrays (the reference's packing, one device)."""
+    numpy arrays (the reference's packing, one device).  For a CUDA
+    ``device`` the fill and cluster records are left to the card:
+    ``stacks`` holds their :class:`~repro_torch.core.lane_program.
+    RecordPlan` under ``"plan"`` in place of ``fills`` and ``clus``, and
+    ``run_lanes`` builds them there."""
+    on_card = device is not None and torch.device(device).type == "cuda"
     with span("sweep.pack"):
-        lanes, stacks, (L, max_sets, max_ways), seg_bounds = pack_lanes(sub)
+        lanes, stacks, (L, max_sets, max_ways), seg_bounds = pack_lanes(
+            sub, record_plan=on_card)
         st0 = init_batched_state(
             L, max_sets, max_ways, lanes["pred0"], lanes["asid0"],
             with_ctlb=any(c.spec.kind == "cache-tlb" for c in sub),
@@ -403,13 +413,16 @@ def _oracle_result(cell: SweepCell) -> SimResult:
 def _run_batch(sub: List[SweepCell], device: torch.device,
                fstats: Optional[Dict[str, int]] = None) -> List[SimResult]:
     """Pack and simulate one batch; per-cell results in ``sub`` order.
-    Adds the packed arrays' bytes to ``fstats["packed_bytes"]``."""
+    Adds the packed arrays' bytes to ``fstats["packed_bytes"]`` and the
+    records the card builds to ``fstats["records_on_card"]``."""
     if _BACKEND_FAULT_HOOK is not None:
         _BACKEND_FAULT_HOOK(sub, device.type)
-    lanes, stacks, st0, seg_bounds = pack_batch(sub)
+    lanes, stacks, st0, seg_bounds = pack_batch(sub, device)
     if fstats is not None:
         fstats["packed_bytes"] += sum(a.nbytes for d in (lanes, stacks, st0)
                                       for a in d.values())
+        if "plan" in stacks:
+            fstats["records_on_card"] += stacks["plan"].n_real
     stF, ppns = run_lanes(lanes, stacks, st0, seg_bounds, device=device)
     counters = stF["counters"].cpu().numpy()
     cov_samples = stF["cov_samples"].cpu().numpy()
@@ -486,13 +499,20 @@ def run_sweep(cells: Sequence[SweepCell], *, cache: bool = True,
     plain torch version).  An injected :class:`BackendFault` goes down
     the recovery ladder (:func:`_run_batch_resilient`); ``stats`` counts
     its ``bisections`` and ``oracle_fallbacks``, ``cache_quarantined``
-    the corrupt cache entries moved aside and recomputed, and
-    ``packed_bytes`` the bytes of every array packed for a launch (each
-    batch, and each part the ladder packs again): the packing's work,
-    and on the card the bytes uploaded.  With a profiler recording, the
-    host work carries spans: ``sweep.pack`` (with ``sweep.pack.fills``,
-    ``sweep.pack.clusters`` and ``sweep.pack.stack`` inside) and
-    ``sweep.unpack``, one each a packed batch.  With ``cache``
+    the corrupt cache entries moved aside and recomputed,
+    ``packed_bytes`` the bytes of every array packed on the host for a
+    launch (each batch, and each part the ladder packs again): the
+    packing's work, and on the card the bytes uploaded, and
+    ``records_on_card`` the fill and cluster records the card built from
+    the map records (pads not counted; 0 on the CPU, where the host packs
+    every record).  With a profiler recording, the host work carries
+    spans: ``sweep.pack`` (with ``sweep.pack.fills``,
+    ``sweep.pack.clusters`` and ``sweep.pack.stack`` inside: on the CPU
+    the fill profiles, the cluster bitmaps and the stacking of every
+    record stack; on the card the plan's fill rows, its cluster rows, and
+    the stacking of the map and dirty stacks and the plan) and
+    ``sweep.unpack``, one each a packed batch.  The records built on the
+    card carry no span: a span holds host work only.  With ``cache``
     enabled, previously simulated cells (same spec, world/trace *content*
     and code version — see :func:`cell_key`) are loaded from ``cache_dir``
     and skipped; ``cache=False`` bypasses the cache.
@@ -517,7 +537,7 @@ def run_sweep(cells: Sequence[SweepCell], *, cache: bool = True,
     todo: List[int] = []
     hits = 0
     fstats = dict(cache_quarantined=0, bisections=0, oracle_fallbacks=0,
-                  packed_bytes=0)
+                  packed_bytes=0, records_on_card=0)
     digests: Dict[int, str] = {}   # id-keyed; cells keep the arrays alive
     keys = [cell_key(c, digests) if cache else "" for c in cells]
     for i, c in enumerate(cells):

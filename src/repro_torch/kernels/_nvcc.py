@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -39,15 +39,17 @@ def find_nvcc() -> str:
 
 
 class NvccLibrary:
-    """One kernel library: ``main`` (a ``.cu`` file in ``csrc``) compiled
+    """One kernel library: ``main`` (a ``.cu`` file in ``csrc``, or a
+    tuple of them, compiled and linked by one ``nvcc`` run) compiled
     with :data:`NVCC_FLAGS`; ``sources`` are every file whose content the
     build depends on (hashed into the library's name); ``declare`` sets
     ``argtypes``/``restype`` of the loaded library's functions."""
 
-    def __init__(self, name: str, csrc: Path, main: str,
+    def __init__(self, name: str, csrc: Path, main: Union[str, Sequence[str]],
                  sources: Sequence[str],
                  declare: Callable[[ctypes.CDLL], None]):
-        self.name, self.csrc, self.main = name, Path(csrc), main
+        self.name, self.csrc = name, Path(csrc)
+        self.mains = (main,) if isinstance(main, str) else tuple(main)
         self.sources = tuple(sources)
         self.declare = declare
         self._lib: Optional[ctypes.CDLL] = None
@@ -73,7 +75,7 @@ class NvccLibrary:
         lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".tmp{os.getpid()}_{threading.get_ident()}.so")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(self.csrc / self.main)]
+               *[str(self.csrc / m) for m in self.mains]]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build the {self.name} "

@@ -1,8 +1,11 @@
-"""Build the TLB-sweep CUDA kernel with ``nvcc`` and load it with ctypes.
+"""Build the TLB-sweep CUDA kernels with ``nvcc`` and load them with ctypes.
 
-The kernel (``csrc/tlb_sweep.cu`` + ``csrc/tlb_lane.cuh``) has a plain C
-interface; :class:`repro_torch.kernels._nvcc.NvccLibrary` compiles it at
-first use into ``build/`` at the root of the checkout.
+The sweep kernel (``csrc/tlb_sweep.cu`` + ``csrc/tlb_lane.cuh``) and the
+kernel that builds its fill and cluster records (``csrc/tlb_records.cu``
++ ``csrc/tlb_records.cuh``) have a plain C interface;
+:class:`repro_torch.kernels._nvcc.NvccLibrary` compiles both into one
+library, in one ``nvcc`` run, at first use into ``build/`` at the root of
+the checkout.
 """
 from __future__ import annotations
 
@@ -12,7 +15,9 @@ from pathlib import Path
 from .._nvcc import BUILD_DIR, NVCC_FLAGS, NvccLibrary, find_nvcc  # noqa: F401
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("tlb_sweep.cu", "tlb_lane.cuh")
+MAINS = ("tlb_sweep.cu", "tlb_records.cu")
+SOURCES = ("tlb_sweep.cu", "tlb_lane.cuh", "tlb_records.cu",
+           "tlb_records.cuh")
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -23,11 +28,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tlb_round_launch.restype = i32
     lib.tlb_sweep_smem_bytes.argtypes = [i32] * 5
     lib.tlb_sweep_smem_bytes.restype = i32
+    lib.tlb_records_launch.argtypes = ([ptr, i32, i32, i32, ptr, i32, i32,
+                                        ptr, ptr, ptr])
+    lib.tlb_records_launch.restype = i32
     lib.tlb_sweep_error_string.argtypes = [i32]
     lib.tlb_sweep_error_string.restype = ctypes.c_char_p
 
 
-LIBRARY = NvccLibrary("tlb_sweep", CSRC, "tlb_sweep.cu", SOURCES, _declare)
+LIBRARY = NvccLibrary("tlb_sweep", CSRC, MAINS, SOURCES, _declare)
 library_path = LIBRARY.library_path
 build = LIBRARY.build
 ptxas_report = LIBRARY.ptxas_report

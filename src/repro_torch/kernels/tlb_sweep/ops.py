@@ -12,6 +12,15 @@ other.  ``LAUNCHES["tlb_sweep"]`` counts the kernel's launches.
 :func:`prepare_cuda` also keeps the cycles each lane's block took
 (``PreparedBatch.cycles``), and :func:`round_cycles` measures the card's
 dependent shared-memory round, the floor of one serial step.
+
+A batch packed for the card (``pack_lanes(..., record_plan=True)``) holds
+a :class:`~repro_torch.core.lane_program.RecordPlan` under
+``stacks["plan"]`` in place of the ``fills`` and ``clus`` stacks:
+:func:`as_tensors` builds those two stacks where the map records now
+lie as soon as they are uploaded, with :func:`build_records` (the
+``tlb_records_kernel`` on the card, counted in ``LAUNCHES
+["tlb_records"]``; :func:`build_records_ref`, the plain version, on the
+CPU).
 """
 from __future__ import annotations
 
@@ -20,7 +29,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ...core.lane_program import needs_switch_pass
+from ...core.lane_program import (PLAN_CODE, PLAN_FIELDS, PLAN_MAP,
+                                  PLAN_PAGES, REC_CODE, REC_CODES,
+                                  RecordPlan, needs_switch_pass)
+from ...core.plane_layout import FILL_REC_WIDTH, MAP_REC_WIDTH
+from ...core.simulator import HUGE, KSUBR, REGULAR, SUBR_PAGES
 from .ref import run_lanes_ref
 
 # params row layout (int32): one row per lane, in this order; the kernel
@@ -41,7 +54,7 @@ MAX_CLASS = 30                # largest alignment class the kernel takes
 SMEM_LIMIT = 232_448          # bytes of shared memory a block may use (H100)
 
 #: kernel launches so far, by kernel name (plain-version runs not counted)
-LAUNCHES: Dict[str, int] = {"tlb_sweep": 0}
+LAUNCHES: Dict[str, int] = {"tlb_sweep": 0, "tlb_records": 0}
 
 
 def pack_params(lanes) -> torch.Tensor:
@@ -66,16 +79,30 @@ def _tensor(a, device) -> torch.Tensor:
 
 def as_tensors(lanes, stacks, st0, device):
     """The packed batch as contiguous tensors on ``device``: bool planes
-    stay bool, everything else is int32."""
+    stay bool, everything else is int32.  A record plan in
+    ``stacks["plan"]`` is built into the ``fills`` and ``clus`` stacks
+    (:func:`build_records`) as soon as the map records are on ``device``,
+    so the built stacks take the uploaded ones' place in the order of
+    allocation."""
     conv = lambda d: {k: _tensor(v, device) for k, v in d.items()}  # noqa: E731
-    return conv(lanes), conv(stacks), conv(st0)
+    out = {}
+    for k, v in stacks.items():
+        if k != "plan":
+            out[k] = _tensor(v, device)
+        if k == "maps" and "plan" in stacks:
+            out.update(build_records(stacks["plan"], out["maps"]))
+    return conv(lanes), out, conv(st0)
 
 
 def run_lanes(lanes, stacks, st0, seg_bounds,
               device: Optional[torch.device] = None):
     """Simulate one packed batch.  With ``device`` the arrays (numpy or
     tensors) are moved there first; the run then goes wherever the
-    tensors lie — the plain version on the CPU, the kernel on CUDA."""
+    tensors lie — the plain version on the CPU, the kernel on CUDA.  A
+    record plan in ``stacks["plan"]`` is built into the ``fills`` and
+    ``clus`` stacks beside the map records (:func:`as_tensors`)."""
+    if device is None and "plan" in stacks:
+        device = stacks["maps"].device
     if device is not None:
         lanes, stacks, st0 = as_tensors(lanes, stacks, st0, device)
     dev = stacks["trace"].device
@@ -89,6 +116,193 @@ def run_lanes(lanes, stacks, st0, seg_bounds,
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError("tlb_sweep: " + msg)
+
+
+# ---------------------------------------------------------------------------
+# The fill and cluster records, built from the map records
+# ---------------------------------------------------------------------------
+
+
+def build_records(plan: RecordPlan, maps: torch.Tensor):
+    """The ``fills [n_fill, P, FILL_REC_WIDTH]`` and ``clus [n_clus,
+    clus_width]`` stacks of ``plan`` (a
+    :class:`~repro_torch.core.lane_program.RecordPlan`, host data) from
+    the ``maps [R, P, 4]`` stack, on the device of ``maps``: CUDA tensors
+    launch ``tlb_records_kernel`` (``csrc/tlb_records.cu``) once, and
+    count it in ``LAUNCHES["tlb_records"]``, or raise; CPU tensors run
+    :func:`build_records_ref`.  Either equals the host packing's stacks
+    (``pack_lanes`` without ``record_plan``) bit for bit."""
+    _check_plan(plan, maps)
+    if maps.device.type == "cpu":
+        return build_records_ref(plan, maps)
+    if maps.device.type != "cuda":
+        raise ValueError(f"no way to build records on device {maps.device}")
+    from . import _build
+
+    R, P, _ = maps.shape
+    # pinned, so the copy queues behind the stream's work and the host
+    # does not wait for it
+    rows = torch.from_numpy(np.ascontiguousarray(plan.rows, np.int32)
+                            ).pin_memory().to(maps.device, non_blocking=True)
+    n_clus = rows.shape[0] - plan.n_fill
+    fills = torch.empty((plan.n_fill, P, FILL_REC_WIDTH), dtype=torch.int32,
+                        device=maps.device)
+    clus = torch.empty((n_clus, plan.clus_width), dtype=torch.int32,
+                       device=maps.device)
+    lib = _build.load()
+    with torch.cuda.device(maps.device):
+        stream = torch.cuda.current_stream(maps.device).cuda_stream
+        rc = lib.tlb_records_launch(
+            rows.data_ptr(), plan.n_fill, n_clus, rows.shape[1],
+            maps.data_ptr(), P, plan.clus_width, fills.data_ptr(),
+            clus.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError("tlb_records kernel launch failed: "
+                           + lib.tlb_sweep_error_string(rc).decode())
+    LAUNCHES["tlb_records"] += 1
+    return dict(fills=fills, clus=clus)
+
+
+def _check_plan(plan: RecordPlan, maps: torch.Tensor) -> None:
+    """Every index the record kernel and its plain version follow is in
+    range (host data only: no read from the card)."""
+    _check(maps.dtype == torch.int32 and maps.dim() == 3
+           and maps.shape[2] == MAP_REC_WIDTH and maps.is_contiguous(),
+           "maps must be a contiguous int32 [R, P, 4]")
+    R, P, _ = maps.shape
+    rows = np.asarray(plan.rows)
+    nf = len(PLAN_FIELDS)
+    _check(rows.dtype == np.int32 and rows.ndim == 2 and rows.shape[1] >= nf
+           and 0 <= plan.n_fill <= rows.shape[0],
+           "the plan must be int32 [n_fill + n_clus, >= 3] rows")
+    code, real = rows[:, PLAN_CODE], rows[:, PLAN_CODE] != REC_CODE["zero"]
+    fill_codes = [REC_CODE[c] for c in REC_CODES if c != "cluster"]
+    _check(np.isin(code[: plan.n_fill], fill_codes).all()
+           and np.isin(code[plan.n_fill:], [REC_CODE["zero"],
+                                             REC_CODE["cluster"]]).all(),
+           "a fill row has a fill profile, a cluster row the cluster code")
+    _check(plan.clus_width == P
+           or (plan.clus_width == 1 and not real[plan.n_fill:].any()),
+           "a cluster record is P wide (1 when every one is a pad)")
+    _check(((rows[real, PLAN_MAP] >= 0) & (rows[real, PLAN_MAP] < R)).all()
+           and ((rows[real, PLAN_PAGES] >= 0)
+                & (rows[real, PLAN_PAGES] <= P)).all(),
+           "plan rows name a map record of the stack and at most P pages")
+    ks = rows[:, nf:]
+    _check(((ks >= -1) & (ks <= MAX_CLASS)).all(),
+           f"plan classes must lie in -1..{MAX_CLASS}")
+
+
+@torch.no_grad()
+def build_records_ref(plan: RecordPlan, maps: torch.Tensor):
+    """Plain PyTorch version of :func:`build_records`, on the device of
+    ``maps``: each record's rows computed at once over its ``n_pages``
+    vpns from its map record."""
+    R, P, _ = maps.shape
+    dev = maps.device
+    rows = np.asarray(plan.rows).tolist()
+    nf = len(PLAN_FIELDS)
+    fills = torch.zeros((plan.n_fill, P, FILL_REC_WIDTH), dtype=torch.int32,
+                        device=dev)
+    clus = torch.zeros((len(rows) - plan.n_fill, plan.clus_width),
+                       dtype=torch.int32, device=dev)
+    for r, row in enumerate(rows):
+        mid, n, code = row[PLAN_MAP], row[PLAN_PAGES], row[PLAN_CODE]
+        if code == REC_CODE["zero"]:
+            continue
+        if r >= plan.n_fill:
+            if n:
+                clus[r - plan.n_fill, :n] = _cluster_ref(maps[mid, :n])
+            continue
+        fills[r, :, 1] = REGULAR
+        if n:
+            ks = []
+            for k in row[nf:]:
+                if k < 0:
+                    break
+                ks.append(k)
+            fills[r, :n] = _fill_ref(maps[mid, :n], code, ks)
+    return dict(fills=fills, clus=clus)
+
+
+def _fill_ref(m: torch.Tensor, code: int, ks) -> torch.Tensor:
+    """[n, FILL_REC_WIDTH] rows of one fill record from its map rows."""
+    ppn, rs, rl = (m[:, i].long() for i in range(3))
+    n = ppn.shape[0]
+    vpn = torch.arange(n, device=m.device)
+
+    def at(v):
+        return v.clamp(0, n - 1)
+
+    def contig_at(v):
+        v = at(v)
+        return torch.where(ppn[v] >= 0, rs[v] + rl[v] - v, 0)
+
+    tag, kcls = vpn.clone(), torch.full_like(vpn, REGULAR)
+    contig, fppn, aux = torch.ones_like(vpn), ppn.clone(), torch.zeros_like(
+        vpn)
+    if code == REC_CODE["kaligned"]:
+        chosen = torch.zeros(n, dtype=torch.bool, device=m.device)
+        for k in ks:
+            vk = vpn & ~((1 << k) - 1)
+            sc = torch.minimum(contig_at(vk), torch.full_like(vk, 1 << k))
+            take = (sc > vpn - vk) & ~chosen
+            tag = torch.where(take, vk, tag)
+            kcls = torch.where(take, k, kcls)
+            contig = torch.where(take, sc, contig)
+            fppn = torch.where(take, ppn[at(vk)], fppn)
+            chosen |= take
+    elif code == REC_CODE["colt"]:
+        span = 8
+        w8 = vpn & ~(span - 1)
+        tag = torch.maximum(rs, w8)
+        contig = (torch.minimum(rs + rl, w8 + span) - tag).clamp_min(1)
+        kcls = torch.where(contig > 1, 3, REGULAR)
+        fppn = ppn[at(tag)]
+    elif code == REC_CODE["thp"]:
+        # a 2MB window backs vpn when it is whole, contiguous from its
+        # base and 2MB-aligned in physical memory
+        pages = 1 << HUGE
+        base = vpn & ~(pages - 1)
+        b = base.clamp_max(n - 1)
+        huge = ((base + pages <= n) & (contig_at(b) >= pages)
+                & ((ppn[b] & (pages - 1)) == 0))
+        tag = torch.where(huge, vpn >> HUGE, vpn)
+        kcls = torch.where(huge, HUGE, REGULAR)
+        contig = torch.where(huge, 1 << HUGE, 1)
+        fppn = ppn[at(torch.where(huge, (vpn >> HUGE) << HUGE, vpn))]
+    elif code == REC_CODE["subregion"]:
+        base = vpn & ~(SUBR_PAGES - 1)
+        bitmap = torch.zeros_like(vpn)
+        for j in range(SUBR_PAGES):
+            pj = at(base + j)
+            ok = (base + j < n) & (ppn[pj] >= 0) & (ppn[pj] - pj == ppn - vpn)
+            bitmap |= ok.long() << j
+        mapped = ppn >= 0
+        popc = sum((bitmap >> j) & 1 for j in range(SUBR_PAGES))
+        tag = torch.where(mapped, base, tag)
+        kcls = torch.where(mapped, KSUBR, kcls)
+        contig = torch.where(mapped, popc, contig)
+        fppn = torch.where(mapped, ppn - (vpn - base), fppn)
+        aux = torch.where(mapped, bitmap, 0)
+    return torch.stack([tag, kcls, contig, fppn, aux], 1).to(torch.int32)
+
+
+def _cluster_ref(m: torch.Tensor) -> torch.Tensor:
+    """[n] words of one cluster record from its map rows: bit j of vpn's
+    word says page j of its 8-page window maps into vpn's 8-frame
+    physical cluster."""
+    ppn = m[:, 0].long()
+    n = ppn.shape[0]
+    win = 1 << 3
+    vpn = torch.arange(n, device=m.device)
+    base = vpn & ~(win - 1)
+    word = torch.zeros_like(vpn)
+    for j in range(win):
+        pj = (base + j).clamp(0, n - 1)
+        ok = (base + j < n) & (ppn[pj] != -1) & (ppn[pj] >> 3 == ppn >> 3)
+        word |= ok.long() << j
+    return torch.where(ppn != -1, word, 0).to(torch.int32)
 
 
 class PreparedBatch:

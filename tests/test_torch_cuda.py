@@ -11,7 +11,11 @@ The TLB-sweep kernel must equal the plain version bit for bit — counters,
 coverage samples and the whole ``[L, T]`` ppn array — on static, dynamic,
 multi-tenant, nested and parity-fault batches covering all 10 method kinds
 and every policy knob and on ``chip_smoke.edge_batches``, count one launch
-per batch, report every lane's cycles, and refuse L2s wider than a warp;
+per batch, report every lane's cycles, and refuse L2s wider than a warp.
+The record kernel must build the fill and cluster stacks from a batch's
+record plan equal to its plain version and to the host packing, on those
+worlds and at Table 4's shapes, once a batch; ``run_sweep`` on the card
+must build its records there and never call the host's record functions;
 ``run_sweep``, ``run_method`` and ``standard_suite`` on the card launch it
 and equal the oracle and the CPU on the fuzz twin's random worlds.  The
 paged-attention kernels must equal their plain version per class pass
@@ -100,6 +104,95 @@ def test_run_sweep_on_card_translates_every_access(cuda):
         np.testing.assert_array_equal(r.ppn, np.asarray(m.ppn)[tr])
         assert (r.l1_hits + r.l2_regular_hits + r.l2_coalesced_hits
                 + r.walks) == r.accesses
+
+
+def _records_vs_plain(cells, dev):
+    """Per packed batch of ``cells``: the record kernel from the card
+    path's plan equals the plain version on the same card tensors and the
+    host packing's stacks, and counts one launch."""
+    from repro_torch.kernels.tlb_sweep.ops import (build_records,
+                                                   build_records_ref)
+    n_real = 0
+    for group in batches_of(cells, range(len(cells))):
+        sub = [cells[i] for i in group]
+        _, host, _, _ = pack_batch(sub)
+        _, card, _, _ = pack_batch(sub, dev)
+        maps = torch.from_numpy(card["maps"]).to(dev)
+        n0 = LAUNCHES["tlb_records"]
+        got = build_records(card["plan"], maps)
+        torch.cuda.synchronize()
+        assert LAUNCHES["tlb_records"] == n0 + 1
+        ref = build_records_ref(card["plan"], maps)
+        assert LAUNCHES["tlb_records"] == n0 + 1   # plain runs not counted
+        for k in ("fills", "clus"):
+            assert got[k].dtype == torch.int32 and got[k].device == maps.device
+            np.testing.assert_array_equal(got[k].cpu().numpy(),
+                                          ref[k].cpu().numpy(), k)
+            np.testing.assert_array_equal(got[k].cpu().numpy(), host[k], k)
+        n_real += card["plan"].n_real
+    return n_real
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_record_kernel_matches_plain(cuda, world):
+    assert _records_vs_plain(world_cells(P, world), cuda) > 0
+
+
+def test_record_kernel_at_table4_shapes(cuda):
+    """The four ``synth-*`` mappings of Table 4 at 2^19 pages: the 36
+    fill and 4 cluster records of the batch, bit-equal to the host
+    packing's."""
+    from repro_torch.core import lane_program as tlp
+    from repro_torch.core.sweep import SweepCell
+    cs = _chip_smoke()
+    cells = []
+    for kind in cs.KINDS:
+        m = tcore.mappings.synthetic_mapping(kind, cs.N_PAGES, seed=1)
+        tr = tcore.traces.generate_trace("multiscale", 0, cs.TRACE_LEN,
+                                         seed=2, mapping=m)
+        cells += [SweepCell(s, m, tr) for s in cs.roster(m)]
+    assert len(batches_of(cells, range(len(cells)))) == 1
+    _, card, _, _ = pack_batch(cells, cuda)
+    plan = card["plan"]
+    real = plan.rows[:, tlp.PLAN_CODE] != tlp.REC_CODE["zero"]
+    assert (int(real[: plan.n_fill].sum()), int(real[plan.n_fill:].sum())) \
+        == (36, 4)
+    assert _records_vs_plain(cells, cuda) == 40
+
+
+@pytest.mark.parametrize("world", ("static", "multitenant"))
+def test_run_sweep_on_card_builds_records_on_card(cuda, world, monkeypatch):
+    """``run_sweep`` on the card calls neither ``_fill_profile`` nor
+    ``cluster_bitmap``, launches the record kernel once a packed batch,
+    counts the records it built, and gives the results of the sweep
+    kernel over the host's records."""
+    from repro_torch.core import lane_program as tlp
+    cells = world_cells(P, world)
+    want = []
+    for group in batches_of(cells, range(len(cells))):
+        lanes, stacks, st0, sb = pack_batch([cells[i] for i in group])
+        k_st, k_pp = run_lanes(lanes, stacks, st0, sb, device=cuda)
+        want += [(k_st["counters"][j].cpu().numpy(), k_pp[j].cpu().numpy())
+                 for j in range(len(group))]
+    calls = []
+    for name in ("_fill_profile", "cluster_bitmap"):
+        monkeypatch.setattr(tlp, name,
+                            lambda *a, _n=name, **k: calls.append(_n))
+    n0, s0 = LAUNCHES["tlb_records"], LAUNCHES["tlb_sweep"]
+    res = run_sweep(cells, cache=False, device="cuda")
+    assert calls == []
+    n_batches = res.stats["n_batches"]
+    assert LAUNCHES["tlb_records"] == n0 + n_batches
+    assert LAUNCHES["tlb_sweep"] == s0 + n_batches
+    assert res.stats["records_on_card"] == sum(
+        pack_batch([cells[i] for i in g], cuda)[1]["plan"].n_real
+        for g in batches_of(cells, range(len(cells))))
+    order = [i for g in batches_of(cells, range(len(cells))) for i in g]
+    for i, (cnt, pp) in zip(order, want):
+        r = res.results[i]
+        assert (r.l1_hits, r.walks, r.cycles) == (
+            int(cnt[tlp.C_L1]), int(cnt[tlp.C_WALK]), int(cnt[tlp.C_CYC]))
+        np.testing.assert_array_equal(r.ppn, pp[: r.accesses])
 
 
 def _chip_smoke():
